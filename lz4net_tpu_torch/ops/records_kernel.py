@@ -1,0 +1,154 @@
+"""Token marks -> per-output-byte decode state and the block certificate.
+
+Port of the TPU kernel ``lz4net_tpu/ops/records_kernel.py:
+records_to_state``.  The CUDA kernel is ``csrc/records_kernel.cu`` (its
+header says what bounds it on the H100 and what the design does about
+that); ``records_to_state_reference`` is its plain PyTorch version.
+
+For every output byte o (in the domain [0, Dt), whose first P positions
+are a dictionary prefix) the governing sequence is the last token whose
+output start ``estart`` is <= o.  Outputs:
+
+* ``t0m`` [B, Dt]: the match source of o (RLE overlap collapsed with a
+  remainder), or ``VFLAG`` where o is not a match byte;
+* ``cidx`` [B, Dt]: the compressed index of o's literal byte, -1 where o
+  is not a literal;
+* ``stats`` [B, 8]: (n_seqs, total_out, strict, consumed, needed, 0, 0,
+  0) - the hardened decoder's certificate.  Columns 5-7 held the TPU
+  kernel's window-miss diagnostics; exact reads cannot miss.
+
+``mark`` must hold 0/1 values (as ``parse_tokens`` gives).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+TILE = 4096          # the kernel's scan tile; C must be a multiple
+M17 = (1 << 17) - 1
+VFLAG = 1 << 19
+
+launches = 0
+
+
+def _check(comp, mark, ll_all, ml_all, comp_len, out_len, pre_len, C):
+    for t in (comp, mark, ll_all, ml_all, comp_len, out_len, pre_len):
+        if t.dtype != torch.int32 or t.device != comp.device:
+            raise TypeError("all inputs must be int32 on one device")
+    B = comp.shape[0]
+    if C % TILE or any(t.shape != (B, C) for t in (comp, mark, ll_all,
+                                                   ml_all)):
+        raise ValueError(f"comp/mark/ll/ml must be [B, C], C % {TILE} == 0")
+    if any(t.shape != (B,) for t in (comp_len, out_len, pre_len)):
+        raise ValueError("comp_len/out_len/pre_len must be [B]")
+
+
+def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
+                     pre_len, C: int, Dt: int, P: int = 0):
+    """Returns (t0m [B, Dt], cidx [B, Dt], stats [B, 8]), all int32."""
+    global launches
+    _check(comp, mark, ll_all, ml_all, comp_len, out_len, pre_len, C)
+    if comp.device.type == "cpu":
+        return records_to_state_reference(comp, mark, ll_all, ml_all,
+                                          comp_len, out_len, pre_len, C,
+                                          Dt, P)
+    if comp.device.type != "cuda":
+        raise ValueError(f"unsupported device {comp.device}")
+    ins = [t.contiguous() for t in (comp, mark, ll_all, ml_all, comp_len,
+                                    out_len, pre_len)]
+    B = comp.shape[0]
+    t0m = torch.empty((B, Dt), dtype=torch.int32, device=comp.device)
+    cidx = torch.empty_like(t0m)
+    stats = torch.empty((B, 8), dtype=torch.int32, device=comp.device)
+    tok = torch.empty((B, 4, C), dtype=torch.int32, device=comp.device)
+    _build.launch("lz4t_records_to_state", comp.device,
+                  *(t.data_ptr() for t in ins),
+                  t0m.data_ptr(), cidx.data_ptr(), stats.data_ptr(),
+                  tok.data_ptr(), B, C, Dt, P)
+    launches += 1
+    return t0m, cidx, stats
+
+
+def records_to_state_reference(comp, mark, ll_all, ml_all, comp_len,
+                               out_len, pre_len, C: int, Dt: int,
+                               P: int = 0):
+    """Plain PyTorch version of ``records_to_state`` (same outputs)."""
+    i32 = torch.int32
+    dev = comp.device
+    B = comp.shape[0]
+    q = torch.arange(C, dtype=i32, device=dev).expand(B, C)
+    ll = ll_all.clamp(0, Dt)
+    ml = ml_all.clamp(0, Dt)
+    m1 = mark == 1
+
+    lit_nib = comp >> 4
+    hdr = 1 + torch.where((lit_nib == 15) & m1,
+                          1 + (ll - 15).clamp(min=0) // 255, 0)
+    adv = mark * (ll + ml)
+    estart = P + torch.cumsum(adv, 1, dtype=i32) - adv
+    rank = torch.cumsum(mark, 1, dtype=i32)
+    n_seqs = rank[:, -1]
+
+    nxt = torch.cat([comp[:, 1:], torch.zeros_like(comp[:, :1])], dim=1)
+    off16 = comp | (nxt << 8)
+    mpos = (q + hdr + ll).clamp(0, C - 2)
+    off = torch.gather(off16, 1, mpos.long())
+
+    out_lim = P + out_len[:, None]
+    ref_floor = P - pre_len[:, None]
+    match_dst = estart + ll
+    lok = m1 & (ll > 0) & (estart < out_lim)
+    mok = m1 & (match_dst < out_lim) & (off > 0) \
+        & (match_dst - off >= ref_floor)
+
+    # ---- hardened-decoder certificate ----
+    end_s = torch.where(m1, q + hdr + ll, 0)
+    consumed = end_s.amax(1)
+    has_match = m1 & (rank < n_seqs[:, None])
+    needed = (torch.where(m1, ll, 0)
+              + torch.where(has_match, ml, 0)).sum(1, dtype=i32)
+    total_out = (torch.where(m1 & (estart < out_lim), ll, 0)
+                 + torch.where(mok, ml, 0)).sum(1, dtype=i32)
+    lit_in = (~m1 | (q + hdr + ll <= comp_len[:, None])).all(1)
+    m_valid = (~has_match | ((off > 0) & (match_dst - off >= ref_floor))
+               ).all(1)
+    strict = lit_in & m_valid & (consumed == comp_len) & (n_seqs > 0)
+
+    # ---- per output byte: the last token with estart <= o ----
+    tokq = torch.cummax(torch.where(m1, q, -1), dim=1).values   # fill fwd
+    tokc = tokq.clamp(min=0).long()
+    key = torch.where(tokq >= 0, torch.gather(estart, 1, tokc), -1)
+    o = torch.arange(Dt, dtype=i32, device=dev).expand(B, Dt).contiguous()
+    at = torch.searchsorted(key.contiguous(), o, right=True) - 1
+    found = at >= 0
+    atc = at.clamp(min=0)
+    tq = torch.gather(tokq, 1, atc)
+    found = found & (tq >= 0)
+    tqc = tq.clamp(min=0).long()
+
+    def field(x):
+        return torch.gather(x, 1, tqc)
+
+    estq = field(estart)
+    llq = field(ll).clamp(max=M17)
+    offq = field(off)
+    mdst = estq + llq
+    in_lit = found & field(lok) & (o < mdst)
+    in_match = found & ~in_lit & field(mok) & (o >= mdst)
+    hdrq = 1 + torch.where(llq >= 15, 1 + (llq - 15).clamp(min=0) // 255, 0)
+    cidx = torch.where(in_lit, tq + hdrq + (o - estq), -1)
+    phase = o - mdst
+    msrc = torch.where(in_match & (phase >= offq),
+                       mdst - offq + torch.fmod(phase, offq.clamp(min=1)),
+                       o - offq)
+    t0m = torch.where(in_match, msrc.clamp(0, Dt - 1), VFLAG)
+
+    stats = torch.zeros((B, 8), dtype=i32, device=dev)
+    stats[:, 0] = n_seqs
+    stats[:, 1] = total_out
+    stats[:, 2] = strict.to(i32)
+    stats[:, 3] = consumed
+    stats[:, 4] = needed
+    return t0m.to(i32), cidx.to(i32), stats

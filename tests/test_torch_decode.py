@@ -1,0 +1,143 @@
+"""The port's decode slice on the CPU (plain PyTorch versions of the four
+kernels), held against the JAX package and the oracles.
+
+* ``resolve_wavefront`` against a sequential numpy resolver of the same
+  state words;
+* ``decode_batch_vectorized`` against the JAX package's XLA branch
+  (``decode_batch_vectorized(..., fused=False)``): out, total_out, ok,
+  strict, consumed and needed equal, tolerance 0;
+* ``VectorDecoder`` and the codec against the native oracle.
+"""
+
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from lz4net_tpu.models import native  # noqa: E402
+from lz4net_tpu.ops import decode_vector as jdv  # noqa: E402
+from lz4net_tpu_torch import codec  # noqa: E402
+from lz4net_tpu_torch.models import reference  # noqa: E402
+from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
+from lz4net_tpu_torch.ops import resolve_kernel  # noqa: E402
+from lz4net_tpu_torch.utils import corpus  # noqa: E402
+
+CASES = {
+    "text": (b"the quick brown fox jumps over the lazy dog. " * 100)[:3000],
+    "rle1": b"\x01" * 5000,
+    "period7": b"abcdefg" * 700,
+    "incompressible": bytes(map(random.Random(4).randrange, [256] * 2500)),
+    "tiny": b"x" * 13,
+    "lit15": b"A" * 15,
+    "lit270": b"A" * 270 + b"XYZWV",
+    "token0": (b"ab" * 40 + b"Q") * 300,
+}
+VFLAG = 1 << 19
+CH = 8192
+
+
+def _oracle(block, n):
+    if native.is_available():
+        return native.decompress_block(block, n)
+    return reference.decompress_block(block, n)
+
+
+def _sequential_resolve(t0, start_chunk):
+    out = np.zeros_like(t0)
+    for b in range(t0.shape[0]):
+        for o in range(t0.shape[1]):
+            t = int(t0[b, o])
+            if o < start_chunk * CH or t >= VFLAG:
+                out[b, o] = t & 0xFF
+            else:
+                out[b, o] = out[b, t]
+    return out
+
+
+def _states(rng, B, Dt, start_chunk):
+    """Random state words: terminals, pointers to any earlier position,
+    and runs of o-1 pointers that nest deeper than 2^12."""
+    t0 = np.empty((B, Dt), np.int64)
+    for b in range(B):
+        for o in range(Dt):
+            r = rng.random()
+            if o < max(1, start_chunk * CH) or r < 0.2:
+                t0[b, o] = VFLAG | int(rng.integers(0, 256))
+            elif r < 0.5:
+                t0[b, o] = int(rng.integers(0, o))
+            else:
+                t0[b, o] = o - 1
+        lo = start_chunk * CH + 100
+        t0[b, lo:lo + 6000] = np.arange(lo - 1, lo + 5999)   # deep chain
+    return t0.astype(np.int32)
+
+
+@pytest.mark.parametrize("start_chunk", [0, 1])
+def test_resolve_wavefront_matches_sequential(start_chunk):
+    rng = np.random.default_rng(11 + start_chunk)
+    t0 = _states(rng, 2, 3 * CH, start_chunk)
+    out, ok = resolve_kernel.resolve_wavefront(torch.from_numpy(t0),
+                                               start_chunk)
+    assert ok.all()
+    np.testing.assert_array_equal(out.numpy(),
+                                  _sequential_resolve(t0, start_chunk))
+
+
+def test_decode_slice_matches_jax_xla_branch():
+    sil = corpus.split_blocks(corpus.silesia_like(1 << 20, seed=5), 16384)
+    datas = list(CASES.values()) + [sil[3], sil[40]]
+    packed = [reference.compress_block(d) for d in datas]
+    packed.append(packed[0][:len(packed[0]) // 2])        # truncated
+    datas.append(datas[0])
+    comp, comp_len, out_len, C, D = dv.pack_blocks(
+        packed, [len(d) for d in datas])
+    S_cap = -(-(C // 3 + 2) // 128) * 128
+    want = jdv.decode_batch_vectorized(
+        jnp.asarray(comp.astype(np.int32)), jnp.asarray(comp_len),
+        jnp.asarray(out_len), C, D, S_cap, 2 * S_cap, 8192, fused=False)
+    got = dv.decode_batch_vectorized(
+        *dv.batch_from_numpy(comp, comp_len, out_len, "cpu"), C, D)
+    for name, w, g in zip(("out", "total_out", "ok", "strict", "consumed",
+                           "needed"), want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+    strict = got[3].numpy()
+    assert strict[:-1].all() and not strict[-1]
+
+
+def test_vector_decoder_matches_native_oracle():
+    datas = list(CASES.values()) + corpus.split_blocks(
+        corpus.silesia_like(1 << 18, seed=2), 1 << 16)
+    packed = [reference.compress_block(d) for d in datas]
+    dec = dv.VectorDecoder(device="cpu")
+    got = dec.decode_batch(packed, [len(d) for d in datas])
+    assert got == [_oracle(p, len(d)) for p, d in zip(packed, datas)]
+    assert got == datas
+    assert dec.host_decodes == 0
+
+
+def test_vector_decoder_rejects_truncation():
+    data = CASES["text"]
+    packed = reference.compress_block(data)
+    dec = dv.VectorDecoder(device="cpu")
+    with pytest.raises(reference.CorruptedBlockError):
+        dec.decode_batch([packed[:len(packed) // 2]], [len(data)])
+    assert dec.host_decodes == 1
+
+
+def test_vector_decoder_refuses_blocks_over_96k():
+    data = corpus.silesia_like(100 * 1024, seed=1)
+    dec = dv.VectorDecoder(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        dec.decode_batch([reference.compress_block(data)], [len(data)])
+
+
+def test_codec_decode_batch_on_cpu():
+    datas = [CASES["text"], b"", CASES["token0"], CASES["tiny"]]
+    packed = [reference.compress_block(d) if d else b"" for d in datas]
+    assert codec.decode_batch(packed, [len(d) for d in datas],
+                              device="cpu") == datas
+    assert codec.decode(packed[2], len(datas[2]), device="cpu") == datas[2]
