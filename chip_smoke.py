@@ -4,19 +4,31 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
-3. runs each kernel and its plain PyTorch version on the card on the same
-   inputs, at the shapes of the main path below, requires every int
-   output to be equal, and times both (CUDA events around 10 back-to-back
-   calls, median of 5; rowbase_gather also beside torch.gather, which
-   the port never calls);
+2. builds the eight CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
+3. runs each decode kernel and its plain PyTorch version on the card on
+   the same inputs, at the shapes of the decode path below, requires
+   every int output to be equal, and times both (CUDA events around 10
+   back-to-back calls, median of 5; rowbase_gather also beside
+   torch.gather, which the port never calls);
 4. decodes a 16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB,
    compressed by the port's reference compressor, through
    lz4net_tpu_torch.codec.decode_batch on the card; requires every block
-   to equal its source bytes, no host re-decode, and every kernel to have
-   launched; prints ms per batch and GB/s of decoded output;
+   to equal its source bytes, no host re-decode, and every decode kernel
+   to have launched; prints ms per batch and GB/s of decoded output;
 5. requires a truncated block to raise CorruptedBlockError;
-6. prints one JSON line with the kernels, then, last,
+6. the same for the four fast-encode kernels at the shapes of the encode
+   path (the three slowest plain versions timed over single calls);
+7. encodes the same 256 blocks through
+   lz4net_tpu_torch.models.cuda.compress_blocks_fast on the card;
+   requires no host encode, every encode kernel and rowbase_gather to
+   have launched, every payload to decode to its source on the host
+   (models.reference) and on the card (codec.decode_batch), and the
+   first 16 payloads to equal the CPU path's (the plain versions, which
+   the CPU tests hold against the JAX encoder); encodes one block through
+   codec.encode(mode="fast") too; prints ms per batch, GB/s of input,
+   the device pass alone and the compressed size beside the reference
+   compressor's;
+8. prints one JSON line with the kernels, then, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Without a CUDA device,
@@ -55,14 +67,14 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, inner: int = 10) -> float:
+def time_ms(torch, fn, inner: int = 10, reps: int = REPS) -> float:
     """Device time per call of ``fn``: CUDA events around ``inner``
     back-to-back calls, so the wrapper's host work overlaps the previous
-    launch; median of REPS such runs, after one warm-up."""
+    launch; median of ``reps`` such runs, after one warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -97,18 +109,18 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def where_the_time_goes(torch, codec, packed, lens, card):
+def where_the_time_goes(torch, call, name, n_bytes, unit, card):
     """The device's busy share and time by kernel from torch.profiler over
-    one codec.decode_batch call, the host's time by function from
-    cProfile over another, then five more calls timed on the host clock
-    (the steady state)."""
+    one ``call()``, the host's time by function from cProfile over
+    another, then five more calls timed on the host clock (the steady
+    state); ``n_bytes`` per call gives the rate in GB/s ``unit``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        codec.decode_batch(packed, lens, device="cuda")
+        call()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t) * 1e3
     # device-side events only (kernels and copies; the CPU ops that
@@ -117,8 +129,9 @@ def where_the_time_goes(torch, codec, packed, lens, card):
            if e.device_type == DeviceType.CUDA
            and not e.key.startswith("Activity Buffer")]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"profile: device busy {busy_ms:.3f} ms of a {prof_ms:.2f} ms "
-          f"profiled call, idle share {1 - busy_ms / prof_ms:.3f}; {card}")
+    print(f"{name} profile: device busy {busy_ms:.3f} ms of a "
+          f"{prof_ms:.2f} ms profiled call, idle share "
+          f"{1 - busy_ms / prof_ms:.3f}; {card}")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
               f"x{e.count} {e.key[:90]}")
@@ -127,12 +140,13 @@ def where_the_time_goes(torch, codec, packed, lens, card):
     cprof = cProfile.Profile()
     t = time.perf_counter()
     cprof.enable()
-    codec.decode_batch(packed, lens, device="cuda")
+    call()
     torch.cuda.synchronize()
     cprof.disable()
     call_ms = (time.perf_counter() - t) * 1e3
     top = sorted(pstats.Stats(cprof).stats.items(), key=lambda kv: -kv[1][2])
-    print(f"host profile: {call_ms:.2f} ms call, own time by function:")
+    print(f"{name} host profile: {call_ms:.2f} ms call, own time by "
+          f"function:")
     for (path, line, fn), (_, ncalls, own, _, _) in top[:6]:
         print(f"  host {own * 1e3:.2f} ms x{ncalls} {fn} "
               f"({path.rsplit('/', 1)[-1]}:{line})")
@@ -141,14 +155,161 @@ def where_the_time_goes(torch, codec, packed, lens, card):
     late = []
     for _ in range(REPS):
         t = time.perf_counter()
-        codec.decode_batch(packed, lens, device="cuda")
+        call()
         torch.cuda.synchronize()
         late.append((time.perf_counter() - t) * 1e3)
     late_ms = statistics.median(late)
-    print("late decode_batch calls (ms): "
+    print(f"late {name} calls (ms): "
           + " ".join(f"{w:.2f}" for w in late)
           + f"; median {late_ms:.2f} ms, "
-          f"{sum(lens) / late_ms / 1e6:.4f} GB/s decoded; {card}")
+          f"{n_bytes / late_ms / 1e6:.4f} GB/s {unit}; {card}")
+
+
+def encode_phases(torch, card, kernel_row, blocks, packed):
+    """Steps 6-7 of the module docstring: the encode kernels against
+    their plain versions, then the encode path through
+    ``compress_blocks_fast``.  Returns that run's launches by kernel."""
+    import numpy as np
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import encode_vector as ev
+    from lz4net_tpu_torch.ops import (emit_kernel, fused_gather,
+                                      hash_kernel, mlen_kernel, seq_kernel)
+
+    lens = [len(b) for b in blocks]
+    n_data = sum(lens)
+    B = len(blocks)
+    D, O, S_cap = ev.batch_shapes(max(lens))
+    SR = seq_kernel.slot_width(S_cap)
+    xn = np.zeros((B, D), np.uint8)
+    for j, b in enumerate(blocks):
+        xn[j, :len(b)] = np.frombuffer(b, np.uint8)
+    x = torch.from_numpy(xn).to("cuda").to(torch.int32)
+    dl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pre = torch.zeros_like(dl)
+    print(f"encode shapes: B={B} D={D} O={O} S_cap={S_cap} SR={SR} "
+          f"rcap={ev.RCAP}")
+
+    # ---- per-kernel phase ------------------------------------------------
+    # Bytes each function must move: outputs written whole, inputs read
+    # where this run's data needs them (token fields at the tokens only,
+    # record fields for the live records only).
+    i4 = 4
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    h4, h8 = hash_kernel.hash_bucket(u32), hash_kernel.hash_bucket8(u32, us4)
+    prev = kernel_row(
+        "bucket_prev", "lz4net_tpu_torch/csrc/hash_kernel.cu",
+        "lz4net_tpu/ops/hash_kernel.py:394", hash_kernel,
+        lambda: hash_kernel.bucket_prev(u32, us4, h4, h8, D),
+        lambda: hash_kernel.bucket_prev_reference(u32, us4, h4, h8, D),
+        n_bytes=5 * B * D * i4, n_ops=B * D * 30, plain_reps=1)
+    off = torch.arange(D, dtype=torch.int32, device="cuda") - prev
+    dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
+                                 & (off > 4))
+    m8 = torch.zeros_like(prev)
+    margs = (x, u32, prev, m8, dks, dl, dl, D, ev.RCAP)
+    matched, off_all, mlen_all = kernel_row(
+        "match_lengths", "lz4net_tpu_torch/csrc/mlen_kernel.cu",
+        "lz4net_tpu/ops/mlen_kernel.py:409", mlen_kernel,
+        lambda: mlen_kernel.match_lengths_fused(*margs),
+        lambda: mlen_kernel.match_lengths_reference(*margs),
+        n_bytes=7 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
+        n_ops=B * D * 40, plain_reps=3)
+    sargs = (u32, matched, off_all, mlen_all, dl, pre, D, S_cap, 0,
+             ev.CU_ROUNDS)
+    # matched everywhere; off, mlen and 2 u32 words a catch-up round at
+    # each token; five slot arrays and the stats written
+    seq = kernel_row(
+        "sequence_records", "lz4net_tpu_torch/csrc/seq_kernel.cu",
+        "lz4net_tpu/ops/seq_kernel.py:531", seq_kernel,
+        lambda: seq_kernel.sequence_records(*sargs),
+        lambda: seq_kernel.sequence_records_reference(*sargs),
+        n_bytes=lambda got: B * D * i4 + int(got[5][:, 0].sum()) * i4
+        * (2 + 2 * ev.CU_ROUNDS) + 5 * B * SR * i4 + B * 8 * i4
+        + 2 * B * i4,
+        n_ops=B * D * 20, plain_reps=3)
+    out_len = seq[5][:, 2].contiguous()
+    n_rec = int((seq[5][:, 1] + 1).sum())
+    eargs = (*seq[:5], out_len, O)
+    _direct, cidx, _miss = kernel_row(
+        "emit_bytes", "lz4net_tpu_torch/csrc/emit_kernel.cu",
+        "lz4net_tpu/ops/emit_kernel.py:195", emit_kernel,
+        lambda: emit_kernel.emit_bytes(*eargs),
+        lambda: emit_kernel.emit_bytes_reference(*eargs),
+        n_bytes=5 * n_rec * i4 + 2 * B * O * i4 + B * i4,
+        n_ops=B * O * (20 + 2 * SR.bit_length()))
+    lit = torch.where(cidx >= 0, cidx, 0)
+    err = max_abs_err(torch, fused_gather.rowbase_gather(x, lit),
+                      fused_gather.rowbase_gather_reference(x, lit))
+    if err != 0:
+        fail(f"rowbase_gather differs from its plain version at the "
+             f"encode path's shapes (max abs err {err})")
+    print(f"kernel rowbase_gather at the encode path's shapes "
+          f"[{B}, {O}] from [{B}, {D}]: max abs err 0")
+
+    # ---- slice phase: the encode path through the engine ------------------
+    mods = {"bucket_prev": hash_kernel, "match_lengths": mlen_kernel,
+            "sequence_records": seq_kernel, "emit_bytes": emit_kernel,
+            "rowbase_gather": fused_gather}
+    enc = cuda_engine.encoder("cuda")
+    for mod in mods.values():
+        mod.launches = 0
+    enc.host_encodes = 0
+    t = time.perf_counter()
+    got = cuda_engine.compress_blocks_fast(blocks, device="cuda")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = {k: mod.launches for k, mod in mods.items()}
+    if enc.host_encodes != 0:
+        fail(f"{enc.host_encodes} blocks were encoded on the host")
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {kname} was not launched on the encode path")
+    bad = [j for j, (p, b) in enumerate(zip(got, blocks))
+           if reference.decompress_block(p, len(b)) != b]
+    if bad:
+        fail(f"encoded blocks {bad[:10]} do not decode to their source "
+             f"on the host")
+    if codec.decode_batch(got, lens, device="cuda") != blocks:
+        fail("encoded blocks do not decode to their source on the card")
+    if got[:16] != ev.VectorEncoder("cpu").encode_batch(blocks[:16]):
+        fail("the first 16 payloads differ from the CPU path's")
+    one = codec.encode(blocks[0], mode="fast", device="cuda")
+    if one != got[0] or reference.decompress_block(one, lens[0]) \
+            != blocks[0]:
+        fail("codec.encode(mode='fast') differs from the batch path")
+    total = sum(map(len, got))
+    strict = sum(map(len, packed))
+    print(f"encode slice: {B} blocks, host_encodes=0, launches "
+          f"{launches}, every payload decodes on the host and the card, "
+          f"first 16 equal the CPU path's, first call {first_ms:.1f} ms; "
+          f"{total} compressed bytes ({total / n_data:.4f} of input) "
+          f"against {strict} ({strict / n_data:.4f}) from the reference "
+          f"compressor; {card}")
+
+    walls = []
+    for _ in range(REPS):
+        t = time.perf_counter()
+        cuda_engine.compress_blocks_fast(blocks, device="cuda")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall = statistics.median(walls)
+    dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
+        x, dl, D, O, S_cap))
+    print("encode slice compress_blocks_fast, first calls (ms): "
+          + " ".join(f"{w:.2f}" for w in walls)
+          + f"; median {wall:.2f} ms per {B}-block batch, "
+          f"{n_data / wall / 1e6:.4f} GB/s of input (host clock, end to "
+          f"end); device pass {dev_ms:.3f} ms, "
+          f"{n_data / dev_ms / 1e6:.3f} GB/s; {card}")
+    where_the_time_goes(
+        torch, lambda: cuda_engine.compress_blocks_fast(blocks,
+                                                        device="cuda"),
+        "compress_blocks_fast", n_data, "of input", card)
+    return launches
 
 
 def main() -> int:
@@ -206,14 +367,18 @@ def main() -> int:
     rows = []
 
     def kernel_row(kname, source, replaces, mod, fn, plain, n_bytes,
-                   n_ops, library=None):
+                   n_ops, library=None, plain_reps=REPS):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         if err != 0:
             fail(f"{kname}: kernel differs from its plain version "
                  f"(max abs err {err})")
-        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+        if callable(n_bytes):              # counted from the outputs
+            n_bytes = n_bytes(got)
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain, inner=1 if plain_reps < REPS
+                           else 10, reps=plain_reps)
         lib_ms = time_ms(torch, library) if library else None
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows.append({"name": kname, "route": "cuda", "source": source,
@@ -309,7 +474,9 @@ def main() -> int:
           f"{len(data) / wall / 1e9:.4f} GB/s decoded (host clock, "
           f"end to end); device pass {dev_ms:.3f} ms, "
           f"{len(data) / dev_ms / 1e6:.3f} GB/s; {card}")
-    where_the_time_goes(torch, codec, packed, lens, card)
+    where_the_time_goes(
+        torch, lambda: codec.decode_batch(packed, lens, device="cuda"),
+        "decode_batch", len(data), "decoded", card)
 
     # ---- malformed input -------------------------------------------------
     try:
@@ -320,9 +487,14 @@ def main() -> int:
     else:
         fail("a truncated block decoded without CorruptedBlockError")
 
+    enc_launches = encode_phases(torch, card, kernel_row, blocks, packed)
     for row in rows:
         del row["module"]
-        row["launches"] = launches[row["name"]]
+        by_path = {path: counts[row["name"]] for path, counts in
+                   (("decode", launches), ("encode", enc_launches))
+                   if row["name"] in counts}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,9 +1,39 @@
-"""Block-decode facade of the CUDA port (counterpart of
-``lz4net_tpu/codec.py:104-157``, known-length decode only)."""
+"""Block facade of the CUDA port (counterpart of ``lz4net_tpu/codec.py``:
+fast encode, :33-66, and known-length decode, :104-157)."""
 
 from __future__ import annotations
 
+from .constants import maximum_output_length
+from .models import cuda
 from .models.service_adapters import CudaService
+
+
+def encode(src: bytes, dst_maxlen: int | None = None, *,
+           dictionary: bytes | None = None, mode: str = "strict",
+           device="cuda") -> bytes:
+    """Greedy LZ4 block compression.
+
+    ``mode="fast"`` runs the vector encoder on the card: format-valid
+    output, byte-identical to the JAX package's fast mode, not to the
+    reference parse.  Returns b"" when the result would not fit
+    ``dst_maxlen`` (default: the worst-case bound).  ``mode="strict"``
+    (the reference parse) and ``dictionary`` are not ported yet.
+    """
+    if mode not in ("strict", "fast"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if dictionary:
+        raise NotImplementedError(
+            "preset-dictionary encode is not ported yet: ROADMAP.md queue "
+            "A, item 7")
+    if mode == "strict":
+        raise NotImplementedError(
+            "strict encode is not ported yet: ROADMAP.md queue A, item 8; "
+            "use mode='fast'")
+    if len(src) == 0:
+        return b""
+    if dst_maxlen is None:
+        dst_maxlen = maximum_output_length(len(src))
+    return cuda.compress_blocks_fast([bytes(src)], [dst_maxlen], device)[0]
 
 
 def decode(src: bytes, output_length: int, device="cuda") -> bytes:

@@ -1,4 +1,4 @@
-// Shared constants and helpers of the decode kernels (sm_90a).
+// Shared constants and helpers of the port's kernels (sm_90a).
 //
 // Every kernel takes int32 rows laid out [B, N] row-major, one CTA per
 // block, and launches on the caller's stream.  Each C entry point returns
@@ -34,13 +34,13 @@ struct SumOp {
 // Running prefix carried across the tiles of one CTA's block-wide scan
 // (cub::BlockScan's BlockPrefixCallbackOp protocol: called by warp 0,
 // lane 0's return value is the tile's prefix).
-template <typename Op>
+template <typename Op, typename T = int>
 struct TileCarry {
-  int carry;
+  T carry;
   Op op;
-  __device__ explicit TileCarry(int init) : carry(init) {}
-  __device__ int operator()(int tile_aggregate) {
-    int old = carry;
+  __device__ explicit TileCarry(T init) : carry(init) {}
+  __device__ T operator()(T tile_aggregate) {
+    T old = carry;
     carry = op(carry, tile_aggregate);
     return old;
   }

@@ -1,9 +1,11 @@
-"""The CUDA decode engine: known-length block decode on the card.
+"""The CUDA engine: known-length block decode and fast greedy block
+encode on the card.
 
 Port of the decode entry points of ``lz4net_tpu/models/tpu.py``
-(:127-154).  The JAX package picks a decoder per call; here one
-``VectorDecoder`` per device is kept, so its ``host_decodes`` count can
-be read after a run.
+(:127-154) and of its ``compress_blocks_fast`` (:83-92).  The JAX package
+makes a decoder or encoder per call; here one ``VectorDecoder`` and one
+``VectorEncoder`` per device are kept, so their ``host_decodes`` and
+``host_encodes`` counts can be read after a run.
 """
 
 from __future__ import annotations
@@ -11,8 +13,10 @@ from __future__ import annotations
 import torch
 
 from ..ops.decode_vector import VectorDecoder, resolve_device
+from ..ops.encode_vector import VectorEncoder
 
 _DECODERS: dict[torch.device, VectorDecoder] = {}
+_ENCODERS: dict[torch.device, VectorEncoder] = {}
 
 
 def is_available() -> bool:
@@ -35,3 +39,23 @@ def decompress_block(src: bytes, output_length: int,
 def decompress_blocks(blocks, out_lens, device="cuda"):
     """Batched known-length decode, one device pass for the batch."""
     return decoder(device).decode_batch(list(blocks), list(out_lens))
+
+
+def encoder(device="cuda") -> VectorEncoder:
+    """The fast encoder serving ``device`` (raises for CUDA without a
+    card)."""
+    device = resolve_device(device)
+    if device not in _ENCODERS:
+        _ENCODERS[device] = VectorEncoder(device)
+    return _ENCODERS[device]
+
+
+def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):
+    """Batched fast greedy encode, one device pass for the batch.
+
+    The payloads are format-valid LZ4 blocks that every decoder reads,
+    byte-identical to the JAX vector encoder's, not the reference
+    compressor's parse.  A payload longer than its ``dst_maxlens`` entry
+    comes back as b"".
+    """
+    return encoder(device).encode_batch(list(blocks), dst_maxlens)

@@ -20,12 +20,18 @@ from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
-from lz4net_tpu_torch.ops import (fused_gather, parse_kernel,  # noqa: E402
-                                  records_kernel, resolve_kernel)
+from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
+from lz4net_tpu_torch.ops import (emit_kernel, fused_gather,  # noqa: E402
+                                  hash_kernel, mlen_kernel, parse_kernel,
+                                  records_kernel, resolve_kernel, seq_kernel)
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-KERNELS = (parse_kernel, records_kernel, fused_gather, resolve_kernel)
+DECODE_KERNELS = (parse_kernel, records_kernel, fused_gather, resolve_kernel)
+# the encode path's four kernels, and the gather it shares with decode
+ENCODE_KERNELS = (hash_kernel, mlen_kernel, seq_kernel, emit_kernel,
+                  fused_gather)
+KERNELS = DECODE_KERNELS + ENCODE_KERNELS[:4]
 
 
 def _imported_modules(path):
@@ -51,10 +57,13 @@ def test_every_kernel_has_its_source_and_entry():
     from lz4net_tpu_torch import _build
     names = {p.stem for p in (ROOT / "lz4net_tpu_torch" / "csrc").glob("*.cu")}
     assert names == {"parse_kernel", "records_kernel", "fused_gather",
-                     "resolve_kernel"}
+                     "resolve_kernel", "hash_kernel", "mlen_kernel",
+                     "seq_kernel", "emit_kernel"}
     assert set(_build.SIGNATURES) == {
         "lz4t_parse_tokens", "lz4t_records_to_state",
-        "lz4t_rowbase_gather", "lz4t_resolve_wavefront"}
+        "lz4t_rowbase_gather", "lz4t_resolve_wavefront",
+        "lz4t_bucket_prev", "lz4t_match_lengths", "lz4t_sequence_records",
+        "lz4t_emit_bytes"}
     for mod in KERNELS:
         assert mod.launches >= 0
 
@@ -72,6 +81,12 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         cuda_engine.decompress_blocks([b"\x10x"], [1])
     with pytest.raises(RuntimeError, match="cuda"):
         dv.batch_from_numpy(np.zeros((1, 4096), np.uint8), [1], [1], "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ev.VectorEncoder()
+    with pytest.raises(RuntimeError, match="cuda"):
+        cuda_engine.compress_blocks_fast([b"abc" * 10])
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode(b"abc" * 10, mode="fast")
 
 
 def test_wrappers_refuse_other_devices():
@@ -89,6 +104,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         resolve_kernel.resolve_wavefront(
             torch.zeros((1, 8192), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        hash_kernel.bucket_prev(meta, meta, meta, meta, 4096)
+    dks = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        mlen_kernel.match_lengths_fused(meta, meta, meta, meta, dks, lens,
+                                        lens, 4096, 512)
+    with pytest.raises(ValueError, match="device"):
+        seq_kernel.sequence_records(meta, meta, meta, meta, lens, lens, 4096,
+                                    1152)
+    with pytest.raises(ValueError, match="device"):
+        emit_kernel.emit_bytes(meta, meta, meta, meta, meta, lens, 8192)
 
 
 def test_corpus_matches_jax_apart_from_its_generated_source_part():
@@ -116,6 +142,9 @@ def test_cpu_path_launches_no_kernel():
     got = codec.decode_batch([reference.compress_block(data)], [len(data)],
                              device="cpu")
     assert got == [data]
+    packed = cuda_engine.compress_blocks_fast([data], device="cpu")
+    assert reference.decompress_block(packed[0], len(data)) == data
+    assert codec.encode(data, mode="fast", device="cpu") == packed[0]
     assert [m.launches for m in KERNELS] == before
 
 
@@ -198,11 +227,110 @@ def test_kernels_match_plain_versions_on_junk(cuda):
 @pytest.mark.gpu
 def test_decode_batch_on_the_card(cuda, blocks):
     plain, packed = blocks
-    before = [m.launches for m in KERNELS]
+    before = [m.launches for m in DECODE_KERNELS]
     dec = cuda_engine.decoder(cuda)
     hosted = dec.host_decodes
     assert codec.decode_batch(packed, [len(b) for b in plain]) == plain
     assert dec.host_decodes == hosted
-    assert all(m.launches > n for m, n in zip(KERNELS, before))
+    assert all(m.launches > n for m, n in zip(DECODE_KERNELS, before))
     with pytest.raises(reference.CorruptedBlockError):
         codec.decode(packed[0][:100], len(plain[0]))
+
+
+def _encode_stages(x, dl, rcap=4096):
+    """Every encode kernel's plain version on x [B, D] (the card's
+    tensors), returning each kernel's inputs and the plain outputs."""
+    B, D = x.shape
+    _, O, S_cap = ev.batch_shapes(int(dl.max()))
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    hargs = (u32, us4, hash_kernel.hash_bucket(u32),
+             hash_kernel.hash_bucket8(u32, us4), D)
+    prev = hash_kernel.bucket_prev_reference(*hargs)
+    off = torch.arange(D, dtype=torch.int32, device=x.device) - prev
+    dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
+                                 & (off > 4))
+    margs = (x, u32, prev, torch.zeros_like(prev), dks, dl, dl, D, rcap)
+    mlen = mlen_kernel.match_lengths_reference(*margs)
+    sargs = (u32, *mlen, dl, torch.zeros_like(dl), D, S_cap)
+    seq = seq_kernel.sequence_records_reference(*sargs)
+    eargs = (*seq[:5], seq[5][:, 2].contiguous(), O)
+    return [(hash_kernel.bucket_prev, hargs, prev),
+            (mlen_kernel.match_lengths_fused, margs, mlen),
+            (seq_kernel.sequence_records, sargs, seq),
+            (emit_kernel.emit_bytes, eargs,
+             emit_kernel.emit_bytes_reference(*eargs))]
+
+
+@pytest.mark.gpu
+def test_encode_kernels_match_plain_versions_on_the_card(cuda, blocks):
+    plain, _ = blocks
+    D, _, _ = ev.batch_shapes(max(map(len, plain)))
+    x = np.zeros((len(plain), D), np.uint8)
+    for j, b in enumerate(plain):
+        x[j, :len(b)] = np.frombuffer(b, np.uint8)
+    x = torch.from_numpy(x).to(cuda).to(torch.int32)
+    dl = torch.tensor([len(b) for b in plain], dtype=torch.int32,
+                      device=cuda)
+    for kernel, args, want in _encode_stages(x, dl):
+        _equal(kernel(*args), want)
+
+
+@pytest.mark.gpu
+def test_encode_kernels_match_plain_versions_on_junk(cuda):
+    """Seeded random operands that no encoder would produce: prev
+    anywhere in [-3, D), bucket ids crowded into 64 buckets, matches of
+    length 0, unsorted offsets, records of random sizes."""
+    rng = np.random.default_rng(9)
+    B, D, S_cap = 3, 8192, 2304
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+
+    x = t(rng.integers(0, 4, (B, D)))
+    u32 = ev._u32(x)
+    words = t(rng.integers(-2**31, 2**31, (B, D), np.int64) % 7)
+    h = t(rng.integers(0, 64, (B, D)))
+    args = (words, torch.roll(words, 3, 1), h, h.flip(1).contiguous(), D)
+    _equal(hash_kernel.bucket_prev(*args),
+           hash_kernel.bucket_prev_reference(*args))
+    prev = t(rng.integers(-3, D, (B, D)))
+    m8 = t(rng.integers(0, 2, (B, D)))
+    dks = t(rng.integers(0, 40, (B, 8)))
+    lens = t([D, D - 100, 5])
+    args = (x, u32, prev, m8, dks, lens, lens, D, 64)
+    _equal(mlen_kernel.match_lengths_fused(*args),
+           mlen_kernel.match_lengths_reference(*args))
+    matched = t(rng.integers(0, 2, (B, D)))
+    args = (u32, matched, t(rng.integers(0, 300, (B, D))),
+            t(rng.integers(0, 40, (B, D))), t([D, D // 2, 100]),
+            t([0, 0, 0]), D, S_cap)
+    _equal(seq_kernel.sequence_records(*args),
+           seq_kernel.sequence_records_reference(*args))
+    S = 8192
+    live = [S, 3000, 0]
+    size = t(rng.integers(1, 40, (B, S)))
+    s0 = torch.cumsum(size, 1, dtype=torch.int32) - size
+    s0 = torch.where(torch.arange(S, device=cuda)[None, :]
+                     < t(live)[:, None], s0, emit_kernel.BIGKEY)
+    fields = [t(rng.integers(0, hi, (B, S))) for hi in (9000, 300, 70000,
+                                                        600)]
+    args = (s0, *fields, t([20000, 60000, 50]), 65536)
+    _equal(emit_kernel.emit_bytes(*args),
+           emit_kernel.emit_bytes_reference(*args))
+
+
+@pytest.mark.gpu
+def test_compress_blocks_fast_on_the_card(cuda, blocks):
+    plain, _ = blocks
+    before = [m.launches for m in ENCODE_KERNELS]
+    enc = cuda_engine.encoder(cuda)
+    hosted = enc.host_encodes
+    got = cuda_engine.compress_blocks_fast(plain)
+    assert enc.host_encodes == hosted
+    assert all(m.launches > n for m, n in zip(ENCODE_KERNELS, before))
+    assert got == ev.VectorEncoder(device="cpu").encode_batch(plain)
+    assert [reference.decompress_block(p, len(b))
+            for p, b in zip(got, plain)] == plain
+    assert codec.decode_batch(got, [len(b) for b in plain]) == plain
+    assert codec.encode(plain[0], mode="fast") == got[0]
