@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the eight CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
+2. builds the nine CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
 3. runs each decode kernel and its plain PyTorch version on the card on
    the same inputs, at the shapes of the decode path below, requires
    every int output to be equal, and times both (CUDA events around 10
@@ -28,8 +28,25 @@
    codec.encode(mode="fast") too; prints ms per batch, GB/s of input,
    the device pass alone and the compressed size beside the reference
    compressor's;
-8. prints one JSON line with the kernels, then, last,
-   {"ok": true, "device": {...}}.
+8. the fast-HC kernel phase at the encode path's shapes: hc_tables with
+   the suffix tiers' three run tables and with the hash tiers' seven
+   tables, match_lengths with 24 dominant offsets on a suffix tier's
+   candidates, and sequence_records with 8 catch-up rounds, each against
+   its plain version;
+9. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
+   tiers) through lz4net_tpu_torch.models.cuda.compress_blocks_hc_fast,
+   and at level 5 with the hash tiers (hc_tiers="hash"); requires for
+   each no host encode, each kernel of its path launched as often as
+   the path says, every payload to decode to its source on the host and
+   on the card, the first 8 payloads to equal the CPU path's, and the
+   level-9 total to be at most the fast mode's; encodes one block
+   through codec.encode_hc(mode="fast"); prints ms per batch (first and
+   late calls), GB/s of input, the device pass alone, the compressed
+   size beside fast mode's and, for the first 8 blocks, beside the
+   reference HC compressor's (models.reference.compress_block_hc);
+10. prints one JSON line with the kernels (each with its launches by
+   path, and the other shapes it was timed at under "variants"), then,
+   last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Without a CUDA device,
 or without the package beside this script, it exits non-zero at once.
@@ -309,7 +326,178 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
         torch, lambda: cuda_engine.compress_blocks_fast(blocks,
                                                         device="cuda"),
         "compress_blocks_fast", n_data, "of input", card)
-    return launches
+    return launches, total
+
+
+# launches a batch of each HC path: (path, level, hc_tiers) -> counts
+HC_PATHS = (
+    ("hc9", 9, None, {"bucket_prev": 0, "hc_tables": 0, "match_lengths": 8,
+                      "sequence_records": 1, "emit_bytes": 1,
+                      "rowbase_gather": 1}),
+    ("hc5", 5, None, {"bucket_prev": 1, "hc_tables": 1, "match_lengths": 2,
+                      "sequence_records": 1, "emit_bytes": 1,
+                      "rowbase_gather": 1}),
+    ("hc5_hash", 5, "hash", {"bucket_prev": 1, "hc_tables": 1,
+                             "match_lengths": 2, "sequence_records": 1,
+                             "emit_bytes": 1, "rowbase_gather": 1}),
+)
+
+
+def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
+    """Steps 8-9 of the module docstring.  Returns the launches by path
+    and kernel."""
+    import numpy as np
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import encode_vector as ev
+    from lz4net_tpu_torch.ops import hash_kernel, mlen_kernel, seq_kernel
+
+    lens = [len(b) for b in blocks]
+    n_data = sum(lens)
+    B = len(blocks)
+    D, O, S_cap = ev.batch_shapes(max(lens))
+    SR = seq_kernel.slot_width(S_cap)
+    xn = np.zeros((B, D), np.uint8)
+    for j, b in enumerate(blocks):
+        xn[j, :len(b)] = np.frombuffer(b, np.uint8)
+    x = torch.from_numpy(xn).to("cuda").to(torch.int32)
+    dl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pre = torch.zeros_like(dl)
+    i4 = 4
+
+    # ---- per-kernel phase ------------------------------------------------
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    run_fwd, is_rs = ev._byte_runs(x)
+    for tables, variant in (("runs", None), (None, "hash tiers, 7 tables")):
+        _, hs, sticky, nrows = hash_kernel.hc_streams(x, u32, us4, is_rs,
+                                                      run_fwd, tables)
+        hargs = (u32, hs, sticky, nrows, D)
+        # wa and one bucket stream a table read, one candidate stream
+        # a table written
+        kernel_row(
+            "hc_tables", "lz4net_tpu_torch/csrc/hc_kernel.cu",
+            "lz4net_tpu/ops/hash_kernel.py:639", hash_kernel,
+            lambda: hash_kernel.hc_tables(*hargs),
+            lambda: hash_kernel.hc_tables_reference(*hargs),
+            n_bytes=(1 + 2 * len(hs)) * B * D * i4,
+            n_ops=B * D * len(hs) * 10, plain_reps=1,
+            counter="hc_launches", variant=variant)
+    # a suffix tier's candidates, as the level-5 path dispatches them
+    prev = hash_kernel.bucket_prev(u32, us4, hash_kernel.hash_bucket(u32),
+                                   hash_kernel.hash_bucket8(u32, us4), D)
+    deep, _ = ev._suffix_candidates((u32, us4) + tuple(
+        ev._shift_left(u32, 4 * k) for k in range(2, 8)))
+    i = torch.arange(D, dtype=torch.int32, device="cuda")
+    prev_t = torch.where((deep >= 0) & (i - deep <= 65535), deep, prev)
+    off = i - prev_t
+    dks = ev._top_offsets_select(off, (prev_t >= 0) & (off <= 65535)
+                                 & (off > 4), ev.HC_TOP_OFFSETS,
+                                 ev.HC_SUB_STEP)
+    rcap = ev.hc_rcap(5, D)
+    margs = (x, u32, prev_t, torch.zeros_like(prev_t), dks, dl, dl, D, rcap)
+    mlen = kernel_row(
+        "match_lengths", "lz4net_tpu_torch/csrc/mlen_kernel.cu",
+        "lz4net_tpu/ops/mlen_kernel.py:409", mlen_kernel,
+        lambda: mlen_kernel.match_lengths_fused(*margs),
+        lambda: mlen_kernel.match_lengths_reference(*margs),
+        n_bytes=7 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
+        n_ops=B * D * 40, plain_reps=3,
+        variant=f"HC tier, K={dks.shape[1]}, rcap={rcap}")
+    sargs = (u32, *mlen, dl, pre, D, S_cap, 0, ev.HC_CU_ROUNDS)
+    kernel_row(
+        "sequence_records", "lz4net_tpu_torch/csrc/seq_kernel.cu",
+        "lz4net_tpu/ops/seq_kernel.py:531", seq_kernel,
+        lambda: seq_kernel.sequence_records(*sargs),
+        lambda: seq_kernel.sequence_records_reference(*sargs),
+        n_bytes=lambda got: B * D * i4 + int(got[5][:, 0].sum()) * i4
+        * (2 + 2 * ev.HC_CU_ROUNDS) + 5 * B * SR * i4 + B * 8 * i4
+        + 2 * B * i4,
+        n_ops=B * D * 20, plain_reps=3,
+        variant=f"HC, cu_rounds={ev.HC_CU_ROUNDS}")
+
+    # ---- slice phases: each HC path through the engine --------------------
+    enc = cuda_engine.encoder("cuda")
+    counted = {row["name"]: row for row in rows}
+    by_path = {}
+    sizes = {}
+    # the reference HC parse is scalar Python: the first 8 blocks only
+    ref8 = sum(len(reference.compress_block_hc(b)) for b in blocks[:8])
+    for path, level, tiers, want in HC_PATHS:
+        def call():
+            if tiers is None:
+                return cuda_engine.compress_blocks_hc_fast(
+                    blocks, level=level, device="cuda")
+            return enc.encode_batch(blocks, hc_level=level, hc_tiers=tiers)
+
+        for row in rows:
+            setattr(row["module"], row["counter"], 0)
+        enc.host_encodes = 0
+        t = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = {k: getattr(counted[k]["module"], counted[k]["counter"])
+                    for k in want}
+        by_path[path] = launches
+        if enc.host_encodes != 0:
+            fail(f"{path}: {enc.host_encodes} blocks were encoded on the "
+                 f"host")
+        if launches != want:
+            fail(f"{path}: launches {launches}, the path makes {want}")
+        bad = [j for j, (p, b) in enumerate(zip(got, blocks))
+               if reference.decompress_block(p, len(b)) != b]
+        if bad:
+            fail(f"{path}: blocks {bad[:10]} do not decode to their source "
+                 f"on the host")
+        if codec.decode_batch(got, lens, device="cuda") != blocks:
+            fail(f"{path}: blocks do not decode to their source on the card")
+        if got[:8] != ev.VectorEncoder("cpu").encode_batch(
+                blocks[:8], hc_level=level, hc_tiers=tiers):
+            fail(f"{path}: the first 8 payloads differ from the CPU path's")
+        total = sum(map(len, got))
+        sizes[path] = total
+        got8 = sum(map(len, got[:8]))
+        print(f"{path} slice (level {level}, tiers {tiers or 'by level'}): "
+              f"{B} blocks, host_encodes=0, launches {launches}, every "
+              f"payload decodes on the host and the card, first 8 equal "
+              f"the CPU path's, first call {first_ms:.1f} ms; {total} "
+              f"compressed bytes ({total / n_data:.4f} of input) against "
+              f"{fast_total} ({fast_total / n_data:.4f}) in fast mode; "
+              f"first 8 blocks {got8} bytes against {ref8} from the "
+              f"reference HC compressor ({got8 / ref8:.4f}); {card}")
+
+        walls = []
+        for _ in range(REPS - 1):
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        wall = statistics.median(walls)
+        dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
+            x, dl, D, O, S_cap, ev.hc_rcap(level, D), level, tiers),
+            inner=3)
+        print(f"{path} slice, first calls (ms): {first_ms:.2f} "
+              + " ".join(f"{w:.2f}" for w in walls)
+              + f"; median of the later {wall:.2f} ms per {B}-block "
+              f"batch, {n_data / wall / 1e6:.4f} GB/s of input (host clock, "
+              f"end to end); device pass {dev_ms:.3f} ms, "
+              f"{n_data / dev_ms / 1e6:.3f} GB/s; {card}")
+        if path != "hc5_hash":
+            where_the_time_goes(torch, call, f"{path} compress_blocks_hc_fast",
+                                n_data, "of input", card)
+    if sizes["hc9"] > fast_total:
+        fail(f"HC level 9 wrote {sizes['hc9']} bytes, more than fast mode's "
+             f"{fast_total}")
+    one = codec.encode_hc(blocks[0], mode="fast", device="cuda")
+    if one != cuda_engine.compress_blocks_hc_fast(blocks[:1])[0] \
+            or reference.decompress_block(one, lens[0]) != blocks[0]:
+        fail("codec.encode_hc(mode='fast') differs from the batch path")
+    print(f"codec.encode_hc(mode='fast'): {lens[0]} -> {len(one)} bytes, "
+          f"equal to the batch path, decodes to its source")
+    return by_path
 
 
 def main() -> int:
@@ -367,7 +555,10 @@ def main() -> int:
     rows = []
 
     def kernel_row(kname, source, replaces, mod, fn, plain, n_bytes,
-                   n_ops, library=None, plain_reps=REPS):
+                   n_ops, library=None, plain_reps=REPS, counter="launches",
+                   variant=None):
+        """Check ``fn`` (the kernel) against ``plain`` and time both; a
+        ``variant`` adds these numbers to kernel ``kname``'s row."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -381,12 +572,18 @@ def main() -> int:
                            else 10, reps=plain_reps)
         lib_ms = time_ms(torch, library) if library else None
         bound_ms, bound_by = bound(n_bytes, n_ops)
-        rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "module": mod,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms})
-        print(f"kernel {kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+        if variant is None:
+            rows.append({"name": kname, "route": "cuda", "source": source,
+                         "replaces": replaces, "module": mod,
+                         "counter": counter, **nums})
+        else:
+            row = next(r for r in rows if r["name"] == kname)
+            row.setdefault("variants", {})[variant] = nums
+        print(f"kernel {kname}" + (f" ({variant})" if variant else "")
+              + f": {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by}"
               + (f", library {lib_ms:.4f} ms" if lib_ms else "")
               + f"), max abs err {err}; {card}")
@@ -440,13 +637,14 @@ def main() -> int:
     # ---- slice phase: the main path through the codec -------------------
     dec = cuda_engine.decoder("cuda")
     for row in rows:
-        row["module"].launches = 0
+        setattr(row["module"], row["counter"], 0)
     dec.host_decodes = 0
     t = time.perf_counter()
     got = codec.decode_batch(packed, lens, device="cuda")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    launches = {row["name"]: row["module"].launches for row in rows}
+    launches = {row["name"]: getattr(row["module"], row["counter"])
+                for row in rows}
     host_decodes = dec.host_decodes
     if got != blocks:
         bad = [i for i, (g, b) in enumerate(zip(got, blocks)) if g != b]
@@ -487,12 +685,16 @@ def main() -> int:
     else:
         fail("a truncated block decoded without CorruptedBlockError")
 
-    enc_launches = encode_phases(torch, card, kernel_row, blocks, packed)
+    enc_launches, fast_total = encode_phases(torch, card, kernel_row,
+                                             blocks, packed)
+    hc_launches = hc_phases(torch, card, kernel_row, rows, blocks,
+                            fast_total)
+    paths = [("decode", launches), ("encode", enc_launches),
+             *hc_launches.items()]
     for row in rows:
-        del row["module"]
-        by_path = {path: counts[row["name"]] for path, counts in
-                   (("decode", launches), ("encode", enc_launches))
-                   if row["name"] in counts}
+        del row["module"], row["counter"]
+        by_path = {path: counts[row["name"]] for path, counts in paths
+                   if counts.get(row["name"])}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """LZ4 block-format constants used by the PyTorch/CUDA port.
 
 The port's own copy of the values it needs from the JAX package's
-``lz4net_tpu/constants.py:10-40`` (the format is normatively described by
+``lz4net_tpu/constants.py:10-66`` (the format is normatively described by
 the LZ4 block format description; the fast-compressor tuning mirrors the
 r88/r93 reference so ``models.reference.compress_block`` stays
 bit-identical to the reference parse).
@@ -19,7 +19,10 @@ ML_MASK = (1 << ML_BITS) - 1     # 15: match-length nibble saturation
 RUN_BITS = 8 - ML_BITS
 RUN_MASK = (1 << RUN_BITS) - 1   # 15: literal-run nibble saturation
 
-MAX_DISTANCE = (1 << 16) - 1     # 65535: maximum (and window) match offset
+MAXD_LOG = 16
+MAXD = 1 << MAXD_LOG             # HC chain table size
+MAXD_MASK = MAXD - 1
+MAX_DISTANCE = (1 << MAXD_LOG) - 1   # 65535: maximum (and window) match offset
 
 # --- fast (greedy) compressor tuning ---------------------------------------
 SKIPSTRENGTH = 6                 # incompressible-skip acceleration exponent
@@ -35,6 +38,26 @@ HASH64K_ADJUST = (MINMATCH * 8) - HASH64K_LOG    # 19
 LZ4_64KLIMIT = (1 << 16) + (MFLIMIT - 1)  # 65547: smaller inputs: 64K path
 
 HASH_MULTIPLIER = 2654435761     # Knuth multiplicative hash constant
+
+# --- high-compression (HC) tuning ------------------------------------------
+HASHHC_LOG = MAXD_LOG - 1        # 15 -> 32768-entry head table
+HASHHC_TABLESIZE = 1 << HASHHC_LOG
+HASHHC_ADJUST = (MINMATCH * 8) - HASHHC_LOG      # 17
+
+MAX_NB_ATTEMPTS = 256            # reference HC chain-walk budget (fixed effort)
+OPTIMAL_ML = (ML_MASK - 1) + MINMATCH            # 18: lazy-parse trim target
+
+# HC "levels 1..9" are an extension over the reference (which has a single
+# fixed effort); level maps to a chain-walk attempt budget, with level 9
+# equal to the reference's fixed MAX_NB_ATTEMPTS so ratio parity holds.
+HC_LEVEL_DEFAULT = 9
+
+
+def hc_level_attempts(level: int) -> int:
+    """Map an HC compression level (1..9) to a chain-walk attempt budget
+    (level 9: the reference's fixed 256-attempt search)."""
+    level = max(1, min(9, int(level)))
+    return 1 << level  # 2,4,...,256
 
 
 def maximum_output_length(input_length: int) -> int:

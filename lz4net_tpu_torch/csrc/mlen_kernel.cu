@@ -24,7 +24,8 @@
 // The block's bytes (one per position) and the class of each position
 // stay in shared memory (2 x D bytes).
 //
-// What bounds it on the H100: the up-to-12 run scans, each a pass of
+// What bounds it on the H100: the up-to-28 run scans (4 + K, K = 8 on
+// the fast path and 24 on the HC tiers), each a pass of
 // shared-memory reads and a CUB block scan over the block; device-memory
 // traffic is about 7 int32 words per position (x, u32, prev, m8 read;
 // matched, off, mlen written, off and mlen read back once).
@@ -38,9 +39,10 @@ namespace {
 constexpr int THREADS = 1024;
 constexpr int ITEMS = 4;
 constexpr int TILE = THREADS * ITEMS;   // D is a multiple of this
-constexpr int MAX_TOP = 8;              // dominant offsets at most
-constexpr int NCLS = 4 + MAX_TOP;       // exact-run offset classes
-constexpr int NO_CLS = 15;
+constexpr int MAX_TOP = 24;             // dominant offsets at most (HC: 24)
+constexpr int NCLS = 4 + MAX_TOP;       // exact-run offset classes, < 32
+                                        // so s_used's bits hold them
+constexpr int NO_CLS = 0x7F;            // "no class" in cls's 7 low bits
 constexpr int MAX_DISTANCE = 65535;
 constexpr int MINMATCH = 4;
 constexpr int LASTLITERALS = 5;

@@ -1,8 +1,9 @@
-"""The CUDA engine: known-length block decode and fast greedy block
-encode on the card.
+"""The CUDA engine: known-length block decode, and fast greedy and
+fast-HC block encode on the card.
 
 Port of the decode entry points of ``lz4net_tpu/models/tpu.py``
-(:127-154) and of its ``compress_blocks_fast`` (:83-92).  The JAX package
+(:127-154), of its ``compress_blocks_fast`` (:83-92) and of its
+``compress_blocks_hc_fast`` (:117-124).  The JAX package
 makes a decoder or encoder per call; here one ``VectorDecoder`` and one
 ``VectorEncoder`` per device are kept, so their ``host_decodes`` and
 ``host_encodes`` counts can be read after a run.
@@ -42,7 +43,7 @@ def decompress_blocks(blocks, out_lens, device="cuda"):
 
 
 def encoder(device="cuda") -> VectorEncoder:
-    """The fast encoder serving ``device`` (raises for CUDA without a
+    """The fast and fast-HC encoder serving ``device`` (raises for CUDA without a
     card)."""
     device = resolve_device(device)
     if device not in _ENCODERS:
@@ -59,3 +60,17 @@ def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):
     comes back as b"".
     """
     return encoder(device).encode_batch(list(blocks), dst_maxlens)
+
+
+def compress_blocks_hc_fast(blocks, dst_maxlens=None, level: int = 9,
+                            device="cuda"):
+    """Batched fast-HC encode, one device pass for the batch: deeper
+    candidate tiers and, from level 4, the lazy parse (levels below 1
+    run as 1, above 9 as 9).
+
+    The payloads are format-valid LZ4 blocks, byte-identical to the JAX
+    vector encoder's at the same level, not the reference HC parse.  A
+    payload longer than its ``dst_maxlens`` entry comes back as b"".
+    """
+    return encoder(device).encode_batch(list(blocks), dst_maxlens,
+                                        hc_level=max(1, level))

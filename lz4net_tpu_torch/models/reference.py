@@ -8,7 +8,10 @@ needs:
   as the reference's known-length ``LZ4_uncompress`` does;
 * ``compress_block`` (:117 there), the r88/r93 greedy parse, bit-identical
   to the reference compressor; ``chip_smoke.py`` uses it to make its
-  input.
+  input;
+* ``compress_block_hc`` (:725 there, with ``_HcState`` and ``_hc_emit``),
+  the r93 lazy two-ahead HC parser; the fast-HC encoder sends the blocks
+  the device flags to it.
 
 It is scalar Python on purpose: clarity and bit-exactness over speed.
 """
@@ -24,14 +27,20 @@ from ..constants import (
     HASH_ADJUST,
     HASH_MULTIPLIER,
     HASH_TABLESIZE,
+    HASHHC_ADJUST,
+    HASHHC_TABLESIZE,
     LASTLITERALS,
     LZ4_64KLIMIT,
     MAX_DISTANCE,
+    MAX_NB_ATTEMPTS,
+    MAXD,
+    MAXD_MASK,
     MFLIMIT,
     MINLENGTH,
     MINMATCH,
     ML_BITS,
     ML_MASK,
+    OPTIMAL_ML,
     RUN_MASK,
     SKIPSTRENGTH,
     maximum_output_length,
@@ -303,4 +312,287 @@ def decompress_block(src, output_length: int) -> bytes:
 
     if len(dst) != output_length:
         raise CorruptedBlockError("decoded length mismatch")
+    return bytes(dst)
+
+
+# ---------------------------------------------------------------------------
+# High-compression (HC) encoder — r93 lazy two-ahead parser
+# ---------------------------------------------------------------------------
+
+class _HcState:
+    """Chain-based match finder state: 32K-entry head table plus 64K-entry
+    u16 delta chain (reference `LZ4HC_Data_Structure`, `Safe.cs:580-618`)."""
+
+    __slots__ = ("src", "src_end", "cap", "heads", "chain", "next_to_update",
+                 "attempts")
+
+    def __init__(self, src: bytes, attempts: int = MAX_NB_ATTEMPTS):
+        self.src = src
+        self.src_end = len(src)
+        self.cap = len(src) - LASTLITERALS
+        self.heads = array("i", bytes(4 * HASHHC_TABLESIZE))
+        self.chain = array("H", b"\xff\xff" * MAXD)
+        self.next_to_update = 1
+        self.attempts = attempts
+
+    def insert_upto(self, p: int) -> None:
+        src, heads, chain = self.src, self.heads, self.chain
+        q = self.next_to_update
+        while q < p:
+            h = _hash(src, q, HASHHC_ADJUST)
+            delta = q - heads[h]
+            if delta > MAX_DISTANCE:
+                delta = MAX_DISTANCE
+            chain[q & MAXD_MASK] = delta
+            heads[h] = q
+            q += 1
+        self.next_to_update = q
+
+    def common_length(self, p: int, ref: int) -> int:
+        return _match_extension(self.src, p, ref, self.cap)
+
+    def find_best_match(self, p: int) -> tuple[int, int]:
+        """Longest match at p; returns (match_len, match_pos), match_len==0
+        if none.  Includes the repetition fast path that pre-fills the chain
+        (`Safe64HC.Dirty.cs:125-192`)."""
+        src, chain = self.src, self.chain
+        self.insert_upto(p)
+        ref = self.heads[_hash(src, p, HASHHC_ADJUST)]
+        nb = self.attempts
+        ml = 0
+        match_pos = 0
+        repl = 0
+        delta = 0
+
+        if ref >= p - 4:  # potential short-period repetition
+            if _eq4(src, ref, p):
+                delta = p - ref
+                repl = ml = self.common_length(p + MINMATCH, ref + MINMATCH) + MINMATCH
+                match_pos = ref
+            ref -= chain[ref & MAXD_MASK]
+
+        while ref >= p - MAX_DISTANCE and nb != 0:
+            nb -= 1
+            if src[ref + ml] == src[p + ml] and _eq4(src, ref, p):
+                mlt = self.common_length(p + MINMATCH, ref + MINMATCH) + MINMATCH
+                if mlt > ml:
+                    ml = mlt
+                    match_pos = ref
+            ref -= chain[ref & MAXD_MASK]
+
+        if repl != 0:  # pre-fill the chain across the repetitive region
+            ptr = p
+            end = p + repl - (MINMATCH - 1)
+            while ptr < end - delta:
+                chain[ptr & MAXD_MASK] = delta
+                ptr += 1
+            while ptr < end:
+                chain[ptr & MAXD_MASK] = delta
+                self.heads[_hash(src, ptr, HASHHC_ADJUST)] = ptr
+                ptr += 1
+            self.next_to_update = end
+
+        return ml, match_pos
+
+    def find_wider_match(self, p: int, start_limit: int, longest: int,
+                         match_pos: int, start_pos: int) -> tuple[int, int, int]:
+        """Search for a match at p that can also extend backwards past
+        start_limit (`Safe64HC.Dirty.cs:194-265`); returns
+        (longest, match_pos, start_pos)."""
+        src, chain = self.src, self.chain
+        self.insert_upto(p)
+        ref = self.heads[_hash(src, p, HASHHC_ADJUST)]
+        nb = self.attempts
+        delta = p - start_limit
+
+        while ref >= p - MAX_DISTANCE and nb != 0:
+            nb -= 1
+            if src[start_limit + longest] == src[ref - delta + longest] \
+                    and _eq4(src, ref, p):
+                fwd = self.common_length(p + MINMATCH, ref + MINMATCH) + MINMATCH
+                # backwards extension
+                back = 0
+                while p - back > start_limit and ref - back > 0 \
+                        and src[p - back - 1] == src[ref - back - 1]:
+                    back += 1
+                total = fwd + back
+                if total > longest:
+                    longest = total
+                    match_pos = ref - back
+                    start_pos = p - back
+            ref -= chain[ref & MAXD_MASK]
+
+        return longest, match_pos, start_pos
+
+
+def _hc_emit(dst: bytearray, src: bytes, anchor: int, p: int, mlen: int,
+             ref: int, dst_maxlen: int) -> tuple[int, int, bool]:
+    """Emit one sequence; returns (new_p, new_anchor, overflowed)."""
+    lit_len = p - anchor
+    token_pos = len(dst)
+    dst.append(0)
+    if len(dst) + lit_len + (2 + 1 + LASTLITERALS) + (lit_len >> 8) > dst_maxlen:
+        return p, anchor, True
+    _emit_literal_run(dst, token_pos, lit_len, src, anchor)
+
+    offset = p - ref
+    dst.append(offset & 0xFF)
+    dst.append(offset >> 8)
+
+    if len(dst) + (1 + LASTLITERALS) + (lit_len >> 8) > dst_maxlen:
+        return p, anchor, True
+    _emit_match_length(dst, token_pos, mlen - MINMATCH)
+
+    p += mlen
+    return p, p, False
+
+
+def compress_block_hc(src, dst_maxlen: int | None = None,
+                      attempts: int = MAX_NB_ATTEMPTS,
+                      data_start: int = 0) -> bytes:
+    """HC-compress one block with the r93 lazy two-ahead parser
+    (`Safe64HC.Dirty.cs:333-522`).  ``attempts`` generalises the reference's
+    fixed 256-attempt chain walk into compression levels; attempts=256
+    reproduces the reference parse bit-for-bit.
+
+    ``data_start`` > 0 treats src[:data_start] as a preset dictionary:
+    the match finder indexes it but emission starts at data_start."""
+    src = bytes(src)
+    n = len(src)
+    if n - data_start <= 0:
+        return b""
+    if dst_maxlen is None:
+        dst_maxlen = maximum_output_length(n - data_start)
+
+    st = _HcState(src, attempts)
+    dst = bytearray()
+    mflimit = n - MFLIMIT
+    anchor = data_start
+    p = max(1, data_start)
+    start2 = ref2 = ml2 = 0
+    start3 = ref3 = ml3 = 0
+
+    while p < mflimit:
+        ml, ref = st.find_best_match(p)
+        if ml == 0:
+            p += 1
+            continue
+
+        start0, ref0, ml0 = p, ref, ml
+
+        # The reference's goto-based lazy parser (_Search2/_Search3 labels)
+        # expressed as an explicit two-state machine.
+        state = "search2"
+        while state != "done":
+            if state == "search2":
+                if p + ml < mflimit:
+                    ml2, ref2, start2 = st.find_wider_match(
+                        p + ml - 2, p + 1, ml, ref2, start2)
+                else:
+                    ml2 = ml
+
+                if ml2 == ml:  # no better second match: emit and restart scan
+                    p, anchor, ovf = _hc_emit(dst, src, anchor, p, ml, ref, dst_maxlen)
+                    if ovf:
+                        return b""
+                    state = "done"
+                    continue
+
+                if start0 < p and start2 < p + ml0:  # rolled-forward too far
+                    p, ref, ml = start0, ref0, ml0
+
+                if start2 - p < 3:  # first match too small: adopt second, retry
+                    ml, p, ref = ml2, start2, ref2
+                    continue  # stay in search2
+
+                state = "search3"
+                continue
+
+            # state == "search3"
+            # trim overlap between match1 and match2 toward OPTIMAL_ML
+            if start2 - p < OPTIMAL_ML:
+                new_ml = min(ml, OPTIMAL_ML)
+                if p + new_ml > start2 + ml2 - MINMATCH:
+                    new_ml = start2 - p + ml2 - MINMATCH
+                corr = new_ml - (start2 - p)
+                if corr > 0:
+                    start2 += corr
+                    ref2 += corr
+                    ml2 -= corr
+
+            if start2 + ml2 < mflimit:
+                ml3, ref3, start3 = st.find_wider_match(
+                    start2 + ml2 - 3, start2, ml2, ref3, start3)
+            else:
+                ml3 = ml2
+
+            if ml3 == ml2:  # no third match: emit the two sequences
+                if start2 < p + ml:
+                    ml = start2 - p
+                p, anchor, ovf = _hc_emit(dst, src, anchor, p, ml, ref, dst_maxlen)
+                if ovf:
+                    return b""
+                p = start2
+                p, anchor, ovf = _hc_emit(dst, src, anchor, p, ml2, ref2, dst_maxlen)
+                if ovf:
+                    return b""
+                state = "done"
+                continue
+
+            if start3 < p + ml + 3:  # not enough room for match2
+                if start3 >= p + ml:
+                    # drop match2 entirely; match3 becomes the new first match
+                    if start2 < p + ml:
+                        corr = p + ml - start2
+                        start2 += corr
+                        ref2 += corr
+                        ml2 -= corr
+                        if ml2 < MINMATCH:
+                            start2, ref2, ml2 = start3, ref3, ml3
+                    p, anchor, ovf = _hc_emit(dst, src, anchor, p, ml, ref, dst_maxlen)
+                    if ovf:
+                        return b""
+                    p, ref, ml = start3, ref3, ml3
+                    start0, ref0, ml0 = start2, ref2, ml2
+                    state = "search2"
+                    continue
+                start2, ref2, ml2 = start3, ref3, ml3
+                continue  # retry search3
+
+            # three ascending matches: emit the first, shift the window
+            if start2 < p + ml:
+                if start2 - p < ML_MASK:
+                    if ml > OPTIMAL_ML:
+                        ml = OPTIMAL_ML
+                    if p + ml > start2 + ml2 - MINMATCH:
+                        ml = start2 - p + ml2 - MINMATCH
+                    corr = ml - (start2 - p)
+                    if corr > 0:
+                        start2 += corr
+                        ref2 += corr
+                        ml2 -= corr
+                else:
+                    ml = start2 - p
+            p, anchor, ovf = _hc_emit(dst, src, anchor, p, ml, ref, dst_maxlen)
+            if ovf:
+                return b""
+            p, ref, ml = start2, ref2, ml2
+            start2, ref2, ml2 = start3, ref3, ml3
+            # stay in search3 with the shifted candidates
+
+    # last literals
+    last_run = n - anchor
+    if len(dst) + last_run + 1 + (last_run + 255 - RUN_MASK) // 255 > dst_maxlen:
+        return b""
+    if last_run >= RUN_MASK:
+        dst.append(RUN_MASK << ML_BITS)
+        rem = last_run - RUN_MASK
+        while rem > 254:
+            dst.append(255)
+            rem -= 255
+        dst.append(rem)
+    else:
+        dst.append(last_run << ML_BITS)
+    dst += src[anchor:n]
+
     return bytes(dst)

@@ -1,26 +1,42 @@
-"""Batched fast greedy encode of independent LZ4 blocks on the card.
+"""Batched fast and fast-HC encode of independent LZ4 blocks on the card.
 
-Port of the fast path of ``lz4net_tpu/ops/encode_vector.py``
-(``encode_batch_vectorized(fused=True)`` with ``hc_level=0`` and no
-dictionary, :499-548 and :759-783) and of ``VectorEncoder.encode_batch``
-for blocks of at most 96 KB.  Four kernels carry it, each with its plain
-PyTorch version beside it, and a fifth serves the literal bytes:
+Port of ``lz4net_tpu/ops/encode_vector.py``: ``encode_batch_vectorized``
+(``fused=True``) without a dictionary, for ``hc_level`` 0 (fast greedy,
+:499-548 and :759-783 there) and 1-9 (fast-HC, the HC branch :507-742),
+and ``VectorEncoder.encode_batch`` for blocks of at most 96 KB.  Five
+kernels carry it, each with its plain PyTorch version beside it, and a
+sixth serves the literal bytes:
 
-1. ``hash_kernel.bucket_prev``: each position's match candidate;
-2. ``mlen_kernel.match_lengths_fused``: match lengths and the format's
-   end rules;
-3. ``seq_kernel.sequence_records``: greedy parse, catch-up, merge and
+1. ``hash_kernel.bucket_prev``: each position's match candidate (fast
+   mode, and the suffix and hash tiers of HC);
+2. ``hash_kernel.hc_tables``: the HC candidate streams of the byte-run
+   tables (suffix tiers) or of all seven tables (hash tiers);
+3. ``mlen_kernel.match_lengths_fused``: match lengths and the format's
+   end rules, once for the base candidates and once a candidate tier;
+4. ``seq_kernel.sequence_records``: greedy parse, catch-up, merge and
    the per-record output starts;
-4. ``emit_kernel.emit_bytes``: every compressed byte, or the input index
+5. ``emit_kernel.emit_bytes``: every compressed byte, or the input index
    of a literal;
-5. ``fused_gather.rowbase_gather`` (the decode path's gather): the
+6. ``fused_gather.rowbase_gather`` (the decode path's gather): the
    literal bytes.
+
+HC's tier policy follows the level: levels 8-9 run the exact sort tiers
+(stable multi-key sorts, one ``match_lengths`` dispatch a tier), levels
+1-7 the suffix-adjacency tiers (one multi-key sort for every prefix width
+at once, plus the run tables); ``hc_tiers`` overrides it ("suffix",
+"hash" or "sort").  The sorts order int32 keys as signed values, as
+``jax.lax.sort`` does, since the neighbour candidates depend on the order.
+
+The JAX package sends some HC batches to its XLA ``_match_lengths``
+instead of the TPU kernel (large D with a large rcap), because of the
+TPU's VMEM; the two are bit-identical.  The CUDA ``match_lengths`` has
+no such limit up to D = 106496, so the port always calls its kernel.
 
 The output is the JAX vector encoder's byte string exactly: format-valid
 LZ4 that any decoder reads, not the reference compressor's parse.  A
 block the device flags goes to the host compressor
-(``models.reference.compress_block``); ``VectorEncoder.host_encodes``
-counts those blocks.
+(``models.reference.compress_block``, or ``compress_block_hc`` for HC);
+``VectorEncoder.host_encodes`` counts those blocks.
 """
 
 from __future__ import annotations
@@ -28,25 +44,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import MAX_DISTANCE, MINMATCH, maximum_output_length
+from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
+                         MINMATCH, maximum_output_length)
 from ..models import reference
 from .decode_vector import CH, _cdiv, resolve_device
 from .emit_kernel import emit_bytes
 from .fused_gather import rowbase_gather
-from .hash_kernel import bucket_prev, hash_bucket, hash_bucket8
-from .mlen_kernel import match_lengths_fused
+from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
+                          hc_candidates)
+from .hash_kernel import shift_left as _shift_left
+from .mlen_kernel import match_lengths_fused, run_lengths
 from .seq_kernel import sequence_records
 
 LANE = 128
 TOP_OFFSETS = 8      # dominant offsets given exact unbounded lengths
 SUB_STEP = 16        # the offset stream is sampled every SUB_STEP bytes
+HC_TOP_OFFSETS = 24  # the same for each HC candidate tier
+HC_SUB_STEP = 8
 CU_ROUNDS = 2        # catch-up rounds of the fast mode
-RCAP = 4096          # far matches extended past 8 bytes, per block
-
-
-def _shift_left(w, n):
-    """y[:, i] = w[:, i + n], zero past the end."""
-    return torch.cat([w[:, n:], torch.zeros_like(w[:, :n])], dim=1)
+HC_CU_ROUNDS = 8     # and of HC
+RCAP = 4096          # far matches extended past 8 bytes, per block (fast)
+HC_TIERS = ("suffix", "hash", "sort")
 
 
 def _u32(x):
@@ -58,13 +76,14 @@ def _u32(x):
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
-def _top_offsets_select(off, far):
-    """The TOP_OFFSETS most frequent far offsets of the offset stream
-    sampled every SUB_STEP bytes, ties to the smaller offset
+def _top_offsets_select(off, far, top_offsets=TOP_OFFSETS,
+                        sub_step=SUB_STEP):
+    """The ``top_offsets`` most frequent far offsets of the offset stream
+    sampled every ``sub_step`` bytes, ties to the smaller offset
     (``jax.lax.top_k`` keeps the lower index first; a stable descending
-    sort does the same).  Returns dks [B, TOP_OFFSETS] int32 (0 marks an
+    sort does the same).  Returns dks [B, top_offsets] int32 (0 marks an
     unused slot)."""
-    sv = torch.sort(torch.where(far[:, ::SUB_STEP], off[:, ::SUB_STEP], 0),
+    sv = torch.sort(torch.where(far[:, ::sub_step], off[:, ::sub_step], 0),
                     dim=1).values
     K = sv.shape[1]
     kk = torch.arange(K, dtype=torch.int32, device=off.device)
@@ -77,38 +96,315 @@ def _top_offsets_select(off, far):
                      .values, [1])
     cnt = torch.where(is_start & (sv > 0), nxt - kk, -1)
     ti = torch.sort(cnt, dim=1, descending=True, stable=True) \
-        .indices[:, :TOP_OFFSETS]
+        .indices[:, :top_offsets]
     dks = torch.gather(sv, 1, ti) * (torch.gather(cnt, 1, ti) > 0)
     return dks.to(torch.int32)
 
 
+def _match_lengths_dispatch(x, u32, prev, m8, end_abs, blk_len, D, rcap,
+                            top_offsets=TOP_OFFSETS, sub_step=SUB_STEP):
+    """(matched bool, off, mlen) of candidates ``prev``: the dominant
+    offsets of ``prev``'s offset stream, then ``match_lengths_fused``
+    (``m8``: the first 8 bytes are known equal)."""
+    i = torch.arange(D, dtype=torch.int32, device=x.device)
+    off = i - prev
+    far = (prev >= 0) & (off <= MAX_DISTANCE) & (off > 4)
+    dks = _top_offsets_select(off, far, top_offsets, sub_step)
+    matched, off_all, mlen_all = match_lengths_fused(
+        x, u32, prev, m8.to(torch.int32), dks, end_abs, blk_len, D, rcap)
+    return matched.bool(), off_all, mlen_all
+
+
+# ---- stable multi-key sorts (the exact and suffix candidate tiers) ------
+
+def _sort_order(keys):
+    """order [B, D]: the positions sorted by the int32 ``keys`` tuple,
+    lexicographically and as signed values (``jax.lax.sort`` with
+    ``num_keys=len(keys)``), equal tuples in position order.  Two keys
+    pack into one int64 ``(k0 << 32) + (k1 + 2**31)`` (an odd last key
+    stays int32); stable sorts by the packed keys run least significant
+    first."""
+    packed = []
+    for j in range(0, len(keys), 2):
+        k = keys[j]
+        if j + 1 < len(keys):
+            k = (k.long() << 32) + (keys[j + 1].long() + 2**31)
+        packed.append(k)
+    B, D = keys[0].shape
+    order = torch.arange(D, device=keys[0].device).expand(B, D)
+    for k in reversed(packed):
+        idx = torch.sort(torch.gather(k, 1, order), dim=1,
+                         stable=True).indices
+        order = torch.gather(order, 1, idx)
+    return order
+
+
+def _same_as_left(keys, order):
+    """[B, D] bool: the sorted entry's key tuple equals its left
+    neighbour's (False at the first entry)."""
+    same = torch.ones_like(order[:, 1:], dtype=torch.bool)
+    for k in keys:
+        ks = torch.gather(k, 1, order)
+        same &= ks[:, 1:] == ks[:, :-1]
+    return torch.cat([torch.zeros_like(same[:, :1]), same], dim=1)
+
+
+def _unsort(order, v):
+    """``v`` (in sorted order) back in position order."""
+    return torch.empty_like(v).scatter_(1, order, v)
+
+
+def _prev_occurrence(keys):
+    """prev[i] = largest j < i whose ``keys`` tuple equals position i's,
+    else -1."""
+    order = _sort_order(keys)
+    same = _same_as_left(keys, order)
+    left = torch.cat([torch.full_like(order[:, :1], -1), order[:, :-1]],
+                     dim=1)
+    return _unsort(order, torch.where(same, left, -1).to(torch.int32))
+
+
+def _first_occurrence(keys):
+    """first[i] = smallest j < i whose ``keys`` tuple equals position i's,
+    else -1."""
+    order = _sort_order(keys)
+    same = _same_as_left(keys, order)
+    k = torch.arange(order.shape[1], device=order.device)
+    head = torch.cummax(torch.where(same, 0, k), dim=1).values
+    return _unsort(order, torch.where(same, torch.gather(order, 1, head),
+                                      -1).to(torch.int32))
+
+
+def _minpos_scan(pos, edge, inf):
+    """Inclusive scan of (mp, ml, tm) = (pos, inf, edge) under the
+    combine of ``encode_vector._suffix_candidates`` there: mp the least
+    position so far, ml the LCP from that entry to the prefix's right
+    edge, tm the least edge.  Positions are distinct, so the combine is
+    associative and a log-step (Hillis-Steele) scan is exact."""
+    mp, ml, tm = pos, torch.full_like(pos, inf), edge
+    s = 1
+    while s < pos.shape[1]:
+        mpa, mla, tma = mp[:, :-s], ml[:, :-s], tm[:, :-s]
+        mpb, mlb, tmb = mp[:, s:], ml[:, s:], tm[:, s:]
+        take_a = mpa <= mpb
+        mp = torch.cat([mp[:, :s], torch.minimum(mpa, mpb)], dim=1)
+        ml = torch.cat([ml[:, :s], torch.where(
+            take_a, torch.minimum(mla, tmb), mlb)], dim=1)
+        tm = torch.cat([tm[:, :s], torch.minimum(tma, tmb)], dim=1)
+        s *= 2
+    return mp, ml
+
+
+def _suffix_candidates(keys):
+    """Best earlier-position candidate per position from the order of
+    one stable multi-key sort (the suffix-array LCP argument): the sort
+    predecessor (A) and successor (B), and the least-position entries
+    before (C) and after (D) it with their LCPs; the best by LCP in
+    words, ties to the nearest.  Returns (cand [B, D] position or -1,
+    lcp4 [B, D] in 0..len(keys))."""
+    K = len(keys)
+    inf = K + 1
+    order = _sort_order(keys)
+    pos_s = order.to(torch.int32)
+    B = pos_s.shape[0]
+    still = torch.ones_like(pos_s[:, 1:], dtype=torch.bool)
+    acc = torch.zeros_like(pos_s[:, 1:])
+    for k in keys:
+        ks = torch.gather(k, 1, order)
+        still &= ks[:, 1:] == ks[:, :-1]
+        acc += still
+    zero = torch.zeros((B, 1), dtype=torch.int32, device=pos_s.device)
+    far_pos = torch.full_like(zero, 1 << 30)
+    none = torch.full_like(zero, -1)
+    edge = torch.cat([zero, acc], dim=1)
+    edge_n = torch.cat([edge[:, 1:], zero], dim=1)
+
+    mp, ml = _minpos_scan(pos_s, edge, inf)
+    # exclusive: the prefix [0..k-1], extended over edge k
+    mpx = torch.cat([far_pos, mp[:, :-1]], dim=1)
+    mlx = torch.minimum(torch.cat([zero, ml[:, :-1]], dim=1), edge)
+    # the same over the sort-order successors
+    mpr, mlr = _minpos_scan(pos_s.flip(1), edge_n.flip(1), inf)
+    mpr, mlr = mpr.flip(1), mlr.flip(1)
+    mpy = torch.cat([mpr[:, 1:], far_pos], dim=1)
+    mly = torch.minimum(torch.cat([mlr[:, 1:], zero], dim=1), edge_n)
+
+    cands = ((torch.cat([none, pos_s[:, :-1]], dim=1), edge),        # A
+             (torch.cat([pos_s[:, 1:], none], dim=1), edge_n),       # B
+             (mpx, mlx),                                             # C
+             (mpy, mly))                                             # D
+    best_p = torch.full_like(pos_s, -1)
+    best_l = torch.zeros_like(pos_s)
+    for cp, cl in cands:
+        ok = (cp >= 0) & (cp < pos_s) & (cl >= 1)
+        better = ok & ((cl > best_l) | ((cl == best_l) & (cp > best_p)))
+        best_p = torch.where(better, cp, best_p)
+        best_l = torch.where(better, cl, best_l)
+    return _unsort(order, best_p), _unsort(order, best_l)
+
+
+def _chain_hop(p):
+    """p[p[i]] where p[i] >= 0, else -1: the next candidate on the chain.
+    The gather clamps -1 to index 0, so the mask keeps a missing
+    candidate from turning into position 0."""
+    p2 = torch.gather(p, 1, p.clamp(min=0).long())
+    return torch.where((p >= 0) & (p2 >= 0), p2, -1)
+
+
+def _byte_runs(x):
+    """(run_fwd, is_rs): the length of the run of equal bytes from each
+    position on, and the starts of runs of at least MINMATCH bytes (a
+    run's first byte matches only an earlier run's start)."""
+    eq_next = torch.cat([x[:, :-1] == x[:, 1:],
+                         torch.zeros_like(x[:, :1], dtype=torch.bool)], 1)
+    run_fwd = 1 + run_lengths(eq_next)
+    prev_byte = torch.cat([torch.full_like(x[:, :1], -1), x[:, :-1]], 1)
+    return run_fwd, (run_fwd >= MINMATCH) & (x != prev_byte)
+
+
+def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
+              rcap, hc_level, hc_mode):
+    """The HC branch of ``_encode_batch_traced`` there (:550-736): more
+    candidate tiers, each dispatched to ``match_lengths`` and taken where
+    it gives a longer match, analytic byte-run matches, and the lazy
+    parse from level 4.  Returns (matched, off, mlen)."""
+    matched, off_all, mlen_all = state
+    i = torch.arange(D, dtype=torch.int32, device=x.device)
+    end_abs = data_len[:, None]
+    run_fwd, is_rs = _byte_runs(x)
+
+    def in_w(c):
+        return (c >= 0) & (i - c <= MAX_DISTANCE)
+
+    def inject_run(cand, ml_bound):
+        """An analytic run match (candidate, length lower bound), within
+        the format's end rules, where it is longer."""
+        nonlocal matched, off_all, mlen_all
+        ml = torch.minimum(ml_bound,
+                           (end_abs - LASTLITERALS - i).clamp(min=0))
+        ok = is_rs & in_w(cand) & (ml >= MINMATCH) \
+            & (i <= end_abs - MFLIMIT) & (end_abs >= MINLENGTH)
+        better = ok & (ml > mlen_all)
+        matched = matched | better
+        off_all = torch.where(better, i - cand, off_all)
+        mlen_all = torch.where(better, ml, mlen_all)
+
+    def run_bound(cand):
+        return torch.minimum(run_fwd, torch.gather(
+            run_fwd, 1, cand.clamp(min=0).long()))
+
+    def sh(k):
+        return _shift_left(u32, k)
+
+    def wide():                    # the 32-byte prefix in u32 words
+        return (u32, u32s4) + tuple(sh(4 * k) for k in range(2, 8))
+
+    cand_sets = []                 # (candidates, first 8 bytes verified)
+    if hc_mode != "sort":
+        if hc_mode == "suffix":
+            deep, _ = _suffix_candidates(wide())
+            merged = torch.where(in_w(deep), deep, -1)
+            _, _, run_cands = hc_candidates(x, u32, u32s4, is_rs, run_fwd,
+                                            D, tables="runs")
+        else:
+            deep, first_c, run_cands = hc_candidates(x, u32, u32s4, is_rs,
+                                                     run_fwd, D)
+            prev2 = _chain_hop(prev)
+            merged = torch.where(
+                in_w(deep), deep, torch.where(
+                    in_w(first_c), first_c,
+                    torch.where(in_w(prev2), prev2, -1)))
+        cand_sets.append((merged, False))
+        # the widest minimum-run tier that hit
+        r4c, r16c, r64c = run_cands
+        rc = torch.where(in_w(r64c), r64c, torch.where(in_w(r16c), r16c,
+                                                       r4c))
+        inject_run(rc, run_bound(rc))
+    else:
+        cand_sets += [
+            (_chain_hop(prev8), True),                 # 2nd-nearest 8B
+            (_first_occurrence((u32, u32s4)), True),
+            (_chain_hop(prev4), False),                # 2nd-nearest 4B
+            (_prev_occurrence((u32, u32s4, sh(8))), True),
+            (_prev_occurrence((u32, u32s4, sh(8), sh(12))), True)]
+        ws = wide()
+        if hc_level >= 2:
+            cand_sets.append((_prev_occurrence(ws), True))     # 32B
+        cand_sets.append((_suffix_candidates(ws)[0], False))
+        for min_run in (MINMATCH, 16, 64):
+            keyr = torch.where(is_rs & (run_fwd >= min_run), x, 300)
+            prev_rs = _prev_occurrence((keyr,))
+            inject_run(prev_rs, run_bound(prev_rs))
+
+    for prev_t, verified8 in cand_sets:
+        ok_t = in_w(prev_t)
+        # the "first 8 bytes verified" claim follows the candidate used
+        claim = (ok_t & verified8) | (~ok_t & m8)
+        m_t, off_t, ml_t = _match_lengths_dispatch(
+            x, u32, torch.where(ok_t, prev_t, prev), claim, data_len,
+            data_len, D, rcap, HC_TOP_OFFSETS, HC_SUB_STEP)
+        better = m_t & ok_t & (ml_t > mlen_all)
+        matched = matched | better
+        off_all = torch.where(better, off_t, off_all)
+        mlen_all = torch.where(better, ml_t, mlen_all)
+
+    if hc_level >= 4:
+        # lazy parse: defer a match when i+1 holds a longer one, or i+2
+        # one longer by more than 1; a defer holds only if its
+        # beneficiary is not deferred itself (exactly 4 rounds)
+        ml1, ml2 = _shift_left(mlen_all, 1), _shift_left(mlen_all, 2)
+        m1, m2 = _shift_left(matched, 1), _shift_left(matched, 2)
+        r1 = m1 & (ml1 > mlen_all)
+        r2 = m2 & (ml2 > mlen_all + 1)
+        defer = r1 | r2
+        for _ in range(4):
+            defer = (r1 & ~_shift_left(defer, 1)) \
+                | (r2 & ~_shift_left(defer, 2))
+        matched = matched & ~defer
+    return matched, off_all, mlen_all
+
+
 def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
-                            rcap: int = RCAP):
+                            rcap: int = RCAP, hc_level: int = 0,
+                            hc_tiers: str | None = None):
     """Greedy-encode a batch of independent blocks.
 
     x: [B, D] int32 bytes (zero padded), data_len: [B] int32,
     D % 8192 == 0, O >= maximum_output_length(D) the padded output
     width, S_cap the record cap (D // 4 + a margin never overflows).
+    ``hc_level`` 1-9 runs fast-HC; ``hc_tiers`` ("suffix", "hash",
+    "sort") overrides its level's tier policy.
     Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool).
     """
+    if hc_tiers not in (None,) + HC_TIERS:
+        raise ValueError(f"hc_tiers must be one of {HC_TIERS} or None")
+    hc_mode = hc_tiers or ("sort" if hc_level >= 8 else "suffix")
+    exact = hc_level > 0 and hc_mode == "sort"
     # no dictionary prefix in this slice: P = 0, pre_len = 0
     pre_len = torch.zeros_like(data_len)
     u32 = _u32(x)
     u32s4 = _shift_left(u32, 4)
-    prev = bucket_prev(u32, u32s4, hash_bucket(u32),
-                       hash_bucket8(u32, u32s4), D)
-
     i = torch.arange(D, dtype=torch.int32, device=x.device)
-    off = i - prev
-    far = (prev >= 0) & (off <= MAX_DISTANCE) & (off > 4)
-    dks = _top_offsets_select(off, far)
-    m8 = torch.zeros_like(prev)        # no 8-byte-verified candidates
-    matched, off_all, mlen_all = match_lengths_fused(
-        x, u32, prev, m8, dks, data_len, data_len, D, rcap)
+    prev4 = prev8 = None
+    if not exact:
+        prev = bucket_prev(u32, u32s4, hash_bucket(u32),
+                           hash_bucket8(u32, u32s4), D)
+        m8 = torch.zeros_like(prev, dtype=torch.bool)
+    else:
+        prev4 = _prev_occurrence((u32,))
+        prev8 = _prev_occurrence((u32, u32s4))
+        m8 = (prev8 >= 0) & (i - prev8 <= MAX_DISTANCE)
+        prev = torch.where(m8, prev8, prev4)
+    state = _match_lengths_dispatch(x, u32, prev, m8, data_len, data_len,
+                                    D, rcap)
+    if hc_level > 0:
+        state = _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state,
+                          data_len, D, rcap, hc_level, hc_mode)
+    matched, off_all, mlen_all = state
 
     s0k, lit_src, lit_len, off_k, mlen_k, stats = sequence_records(
-        u32, matched, off_all, mlen_all, data_len, pre_len, D, S_cap,
-        P=0, cu_rounds=CU_ROUNDS)
+        u32, matched.to(torch.int32), off_all, mlen_all, data_len, pre_len,
+        D, S_cap, P=0, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
     n_seqs, n_m, out_len = stats[:, 0], stats[:, 1], stats[:, 2]
     direct, cidx, miss = emit_bytes(s0k, lit_src, lit_len, off_k, mlen_k,
                                     out_len, O)
@@ -131,9 +427,18 @@ def batch_shapes(max_len: int):
     return D, O, S_cap
 
 
+def hc_rcap(hc_level: int, D: int) -> int:
+    """Far matches extended past 8 bytes per block at a (clamped) level:
+    RCAP for fast mode, D // 8 (at least RCAP) up to level 5, D // 4
+    above (encode_vector.py:1096-1098 there)."""
+    if hc_level == 0:
+        return RCAP
+    return max(RCAP, D // (8 if hc_level <= 5 else 4))
+
+
 class VectorEncoder:
-    """Fast greedy batch encode through the four kernels, one device
-    pass per batch; blocks the device flags go to the host compressor."""
+    """Fast and fast-HC batch encode through the kernels, one device pass
+    per batch; blocks the device flags go to the host compressor."""
 
     MAX_BLOCK = 96 * 1024
 
@@ -142,13 +447,10 @@ class VectorEncoder:
         self.host_encodes = 0
 
     def encode_batch(self, blocks, dst_maxlens=None, hc_level=0,
-                     dictionary=None):
+                     dictionary=None, hc_tiers=None):
         """Compressed payloads of ``blocks``; b"" for one longer than its
-        ``dst_maxlens`` entry (default: the worst-case bound)."""
-        if hc_level:
-            raise NotImplementedError(
-                "fast-HC encode (hc_level > 0) is not ported yet: "
-                "ROADMAP.md queue A, item 6")
+        ``dst_maxlens`` entry (default: the worst-case bound).
+        ``hc_level`` 0 is fast greedy, 1-9 fast-HC (clamped to 9)."""
         if dictionary:
             raise NotImplementedError(
                 "preset-dictionary encode is not ported yet: ROADMAP.md "
@@ -163,6 +465,7 @@ class VectorEncoder:
             raise NotImplementedError(
                 f"blocks over {self.MAX_BLOCK} bytes (indices {big[:8]}) "
                 "are not ported yet: ROADMAP.md queue A, item 7")
+        lvl = min(max(hc_level, 0), 9)
         results = [b""] * len(blocks)      # an empty block encodes to b""
         todo = [i for i, b in enumerate(blocks) if b]
         if not todo:
@@ -175,7 +478,8 @@ class VectorEncoder:
         # the bytes ship as uint8 and widen on the device
         xt = torch.from_numpy(x).to(self.device).to(torch.int32)
         out, out_len, ok = encode_batch_vectorized(
-            xt, torch.from_numpy(lens).to(self.device), D, O, S_cap)
+            xt, torch.from_numpy(lens).to(self.device), D, O, S_cap,
+            hc_rcap(lvl, D), lvl, hc_tiers)
         # fetch bytes, not words
         out = out.to(torch.uint8).cpu().numpy()
         out_len, ok = out_len.cpu().numpy(), ok.cpu().numpy()
@@ -184,6 +488,8 @@ class VectorEncoder:
                 payload = out[j, :int(out_len[j])].tobytes()
             else:
                 self.host_encodes += 1
-                payload = reference.compress_block(blocks[i])
+                payload = (reference.compress_block_hc(blocks[i],
+                                                       dst_maxlens[i])
+                           if lvl else reference.compress_block(blocks[i]))
             results[i] = payload if len(payload) <= dst_maxlens[i] else b""
         return results

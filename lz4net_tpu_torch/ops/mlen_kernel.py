@@ -36,7 +36,7 @@ from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
 TILE = 4096          # the kernel's scan tile; D must be a multiple
 MAX_D = 13 * 8192    # 96 KB blocks; the kernel keeps 2 bytes a position
                      # in shared memory
-MAX_TOP = 8          # at most this many dominant offsets
+MAX_TOP = 24         # at most this many dominant offsets (HC tiers: 24)
 
 launches = 0
 

@@ -58,14 +58,15 @@ def test_every_kernel_has_its_source_and_entry():
     names = {p.stem for p in (ROOT / "lz4net_tpu_torch" / "csrc").glob("*.cu")}
     assert names == {"parse_kernel", "records_kernel", "fused_gather",
                      "resolve_kernel", "hash_kernel", "mlen_kernel",
-                     "seq_kernel", "emit_kernel"}
+                     "seq_kernel", "emit_kernel", "hc_kernel"}
     assert set(_build.SIGNATURES) == {
         "lz4t_parse_tokens", "lz4t_records_to_state",
         "lz4t_rowbase_gather", "lz4t_resolve_wavefront",
         "lz4t_bucket_prev", "lz4t_match_lengths", "lz4t_sequence_records",
-        "lz4t_emit_bytes"}
+        "lz4t_emit_bytes", "lz4t_hc_tables"}
     for mod in KERNELS:
         assert mod.launches >= 0
+    assert hash_kernel.hc_launches >= 0
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -115,6 +116,8 @@ def test_wrappers_refuse_other_devices():
                                     1152)
     with pytest.raises(ValueError, match="device"):
         emit_kernel.emit_bytes(meta, meta, meta, meta, meta, lens, 8192)
+    with pytest.raises(ValueError, match="device"):
+        hash_kernel.hc_tables(meta, [meta], [False], [8], 4096)
 
 
 def test_corpus_matches_jax_apart_from_its_generated_source_part():
@@ -137,7 +140,7 @@ def test_corpus_matches_jax_apart_from_its_generated_source_part():
 
 
 def test_cpu_path_launches_no_kernel():
-    before = [m.launches for m in KERNELS]
+    before = [m.launches for m in KERNELS] + [hash_kernel.hc_launches]
     data = b"abcdefgh" * 500
     got = codec.decode_batch([reference.compress_block(data)], [len(data)],
                              device="cpu")
@@ -145,7 +148,11 @@ def test_cpu_path_launches_no_kernel():
     packed = cuda_engine.compress_blocks_fast([data], device="cpu")
     assert reference.decompress_block(packed[0], len(data)) == data
     assert codec.encode(data, mode="fast", device="cpu") == packed[0]
-    assert [m.launches for m in KERNELS] == before
+    for level in (5, 9):
+        hc = codec.encode_hc(data, level=level, mode="fast", device="cpu")
+        assert reference.decompress_block(hc, len(data)) == data
+    assert [m.launches for m in KERNELS] + [hash_kernel.hc_launches] \
+        == before
 
 
 # ---- on the card --------------------------------------------------------
@@ -334,3 +341,83 @@ def test_compress_blocks_fast_on_the_card(cuda, blocks):
             for p, b in zip(got, plain)] == plain
     assert codec.decode_batch(got, [len(b) for b in plain]) == plain
     assert codec.encode(plain[0], mode="fast") == got[0]
+
+
+def _x_on(cuda, plain):
+    D, _, _ = ev.batch_shapes(max(map(len, plain)))
+    x = np.zeros((len(plain), D), np.uint8)
+    for j, b in enumerate(plain):
+        x[j, :len(b)] = np.frombuffer(b, np.uint8)
+    dl = torch.tensor([len(b) for b in plain], dtype=torch.int32,
+                      device=cuda)
+    return torch.from_numpy(x).to(cuda).to(torch.int32), dl, D
+
+
+@pytest.mark.gpu
+def test_hc_tables_match_plain_version_on_the_card(cuda, blocks):
+    """The suffix tiers' three run tables and the hash tiers' seven."""
+    plain, _ = blocks
+    x, _, D = _x_on(cuda, plain)
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    run_fwd, is_rs = ev._byte_runs(x)
+    for tables in ("runs", None):
+        before = hash_kernel.hc_launches
+        got = hash_kernel.hc_candidates(x, u32, us4, is_rs, run_fwd, D,
+                                        tables)
+        assert hash_kernel.hc_launches == before + 1
+        cpu = [t.cpu() for t in (x, u32, us4, is_rs, run_fwd)]
+        _equal(got, hash_kernel.hc_candidates(*cpu, D, tables))
+    # junk: bucket ids crowded into 40 buckets, sticky and run-sized tables
+    rng = np.random.default_rng(3)
+    words = torch.from_numpy(rng.integers(0, 3, (3, 8192), np.int32)).to(
+        cuda)
+    hs = [torch.from_numpy(rng.integers(0, 40, (3, 8192), np.int32)).to(
+        cuda) for _ in range(3)]
+    args = (words, hs, (False, True, False), (64, 64, 8), 8192)
+    _equal(hash_kernel.hc_tables(*args),
+           hash_kernel.hc_tables_reference(*args))
+
+
+@pytest.mark.gpu
+def test_hc_match_lengths_and_catch_up_on_the_card(cuda, blocks):
+    """match_lengths with 24 dominant offsets on a suffix tier's
+    candidates, and sequence_records with 8 catch-up rounds."""
+    plain, _ = blocks
+    x, dl, D = _x_on(cuda, plain)
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    cand, _ = ev._suffix_candidates((u32, us4) + tuple(
+        ev._shift_left(u32, 4 * k) for k in range(2, 8)))
+    i = torch.arange(D, dtype=torch.int32, device=cuda)
+    prev = torch.where(cand >= 0, cand, ev._prev_occurrence((u32,)))
+    off = i - prev
+    dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
+                                 & (off > 4), 24, 8)
+    assert dks.shape[1] == 24
+    margs = (x, u32, prev, torch.zeros_like(prev), dks, dl, dl, D,
+             ev.hc_rcap(9, D))
+    mlen = mlen_kernel.match_lengths_fused(*margs)
+    _equal(mlen, mlen_kernel.match_lengths_reference(*margs))
+    _, _, S_cap = ev.batch_shapes(int(dl.max()))
+    sargs = (u32, *mlen, dl, torch.zeros_like(dl), D, S_cap, 0,
+             ev.HC_CU_ROUNDS)
+    _equal(seq_kernel.sequence_records(*sargs),
+           seq_kernel.sequence_records_reference(*sargs))
+
+
+@pytest.mark.gpu
+def test_compress_blocks_hc_fast_on_the_card(cuda, blocks):
+    plain, _ = blocks
+    enc = cuda_engine.encoder(cuda)
+    for level, tiers in ((9, None), (5, None), (5, "hash")):
+        hosted = enc.host_encodes
+        before = hash_kernel.hc_launches
+        got = enc.encode_batch(plain, hc_level=level, hc_tiers=tiers)
+        assert enc.host_encodes == hosted
+        assert (hash_kernel.hc_launches > before) == (level < 8)
+        assert got == ev.VectorEncoder(device="cpu").encode_batch(
+            plain[:2], hc_level=level, hc_tiers=tiers) + got[2:]
+        assert codec.decode_batch(got, [len(b) for b in plain]) == plain
+    assert codec.encode_hc(plain[0], mode="fast") \
+        == cuda_engine.compress_blocks_hc_fast(plain[:1])[0]
