@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the nine CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
+2. builds the eleven CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
 3. runs each decode kernel and its plain PyTorch version on the card on
    the same inputs, at the shapes of the decode path below, requires
    every int output to be equal, and times both (CUDA events around 10
@@ -28,12 +28,28 @@
    codec.encode(mode="fast") too; prints ms per batch, GB/s of input,
    the device pass alone and the compressed size beside the reference
    compressor's;
-8. the fast-HC kernel phase at the encode path's shapes: hc_tables with
+8. the two sequencer kernels at the slice's shapes (B=256): the strict
+   encoder on the 64 KB blocks and the sequencer decoder on their
+   reference-compressed form, each against its plain version (a walk
+   over CPU tensors, timed over one call; the encoder's rows up to each
+   payload's length, as the kernel leaves the rest undefined);
+9. encodes the 256 blocks through
+   lz4net_tpu_torch.models.cuda.compress_blocks (strict) and decodes the
+   reference-compressed blocks through
+   lz4net_tpu_torch.ops.decode_sequencer.SequencerDecoder; requires each
+   path to launch its kernel once and no other, the payloads to equal
+   the reference compressor's bytes and the decoded blocks their source,
+   codec.encode (the default strict
+   mode) to equal the batch path, a budget overflow to give b"", and a
+   truncated and an offset-0 block to raise CorruptedBlockError; prints
+   ms per batch (first and later calls; the sequencer decoder in turns
+   with the vector decoder) and the device pass alone;
+10. the fast-HC kernel phase at the encode path's shapes: hc_tables with
    the suffix tiers' three run tables and with the hash tiers' seven
    tables, match_lengths with 24 dominant offsets on a suffix tier's
    candidates, and sequence_records with 8 catch-up rounds, each against
    its plain version;
-9. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
+11. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
    tiers) through lz4net_tpu_torch.models.cuda.compress_blocks_hc_fast,
    and at level 5 with the hash tiers (hc_tiers="hash"); requires for
    each no host encode, each kernel of its path launched as often as
@@ -44,7 +60,7 @@
    late calls), GB/s of input, the device pass alone, the compressed
    size beside fast mode's and, for the first 8 blocks, beside the
    reference HC compressor's (models.reference.compress_block_hc);
-10. prints one JSON line with the kernels (each with its launches by
+12. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -146,9 +162,13 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
            if e.device_type == DeviceType.CUDA
            and not e.key.startswith("Activity Buffer")]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"{name} profile: device busy {busy_ms:.3f} ms of a "
-          f"{prof_ms:.2f} ms profiled call, idle share "
-          f"{1 - busy_ms / prof_ms:.3f}; {card}")
+    if any(e.key.startswith("lz4t::") for e in dev):
+        print(f"{name} profile: device busy {busy_ms:.3f} ms of a "
+              f"{prof_ms:.2f} ms profiled call, idle share "
+              f"{1 - busy_ms / prof_ms:.3f}; {card}")
+    else:   # the trace lost events: a busy share from it would be false
+        print(f"{name} profile: the trace holds none of the port's "
+              f"kernels, busy and idle share not measured; {card}")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
               f"x{e.count} {e.key[:90]}")
@@ -344,7 +364,7 @@ HC_PATHS = (
 
 
 def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
-    """Steps 8-9 of the module docstring.  Returns the launches by path
+    """Steps 10-11 of the module docstring.  Returns the launches by path
     and kernel."""
     import numpy as np
 
@@ -500,6 +520,181 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     return by_path
 
 
+def _uint8_rows(torch, rows):
+    """rows as a [B, max len] uint8 tensor on the card (zero padded) and
+    their lengths as [B] int32."""
+    import numpy as np
+    x = np.zeros((len(rows), max(map(len, rows))), np.uint8)
+    for j, r in enumerate(rows):
+        x[j, :len(r)] = np.frombuffer(r, np.uint8)
+    return (torch.from_numpy(x).to("cuda"),
+            torch.tensor([len(r) for r in rows], dtype=torch.int32,
+                         device="cuda"))
+
+
+def _on_card(pair):
+    return tuple(t.to("cuda") for t in pair)
+
+
+def strict_phases(torch, card, kernel_row, rows, blocks, packed):
+    """Steps 8-9 of the module docstring: the two sequencer kernels
+    against their plain versions, then strict encode through
+    ``compress_blocks`` and sequencer decode through
+    ``SequencerDecoder.decode_batch``.  Returns the launches by path and
+    kernel."""
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.constants import maximum_output_length
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import decode_sequencer as ds
+    from lz4net_tpu_torch.ops import encode_sequencer as es
+
+    lens = [len(b) for b in blocks]
+    n_data = sum(lens)
+    B = len(blocks)
+    i4 = 4
+
+    # ---- per-kernel phase: the plain versions walk CPU tensors ----------
+    src, src_len = _uint8_rows(torch, blocks)
+    cap = torch.tensor([maximum_output_length(n) for n in lens],
+                       dtype=torch.int32, device="cuda")
+    O = int(cap.max())
+    cpu_args = (src.cpu(), src_len.cpu(), cap.cpu(), O)
+    print(f"strict encode shapes: B={B} S={src.shape[1]} O={O}")
+    def payloads(pair):
+        """(out, written) with the row bytes past each payload zeroed: the
+        kernel leaves them undefined."""
+        out, written = pair
+        cols = torch.arange(out.shape[1], device=out.device)
+        return out * (cols < written.clamp(min=0)[:, None]), written
+
+    # the source bytes and two lengths a block read, the payloads (this
+    # run's `written`) and `written` stored; about ten integer operations
+    # a byte
+    kernel_row(
+        "encode_sequencer", "lz4net_tpu_torch/csrc/encode_sequencer.cu",
+        "lz4net_tpu/ops/encode_pallas.py:313", es,
+        lambda: es.encode_sequencer(src, src_len, cap, O),
+        lambda: _on_card(es.encode_sequencer_reference(*cpu_args)),
+        n_bytes=lambda got: (n_data + 2 * B * i4
+                             + int(got[1].clamp(min=0).sum()) + B * i4),
+        n_ops=10 * n_data, plain_reps=1, defined=payloads)
+    comp, comp_len = _uint8_rows(torch, packed)
+    out_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    D = max(lens)
+    cpu_args = (comp.cpu(), comp_len.cpu(), out_len.cpu(), D)
+    n_comp = sum(map(len, packed))
+    print(f"sequencer decode shapes: B={B} C={comp.shape[1]} D={D}")
+    kernel_row(
+        "decode_sequencer", "lz4net_tpu_torch/csrc/decode_sequencer.cu",
+        "lz4net_tpu/ops/decode_pallas.py:250", ds,
+        lambda: ds.decode_sequencer(comp, comp_len, out_len, D),
+        lambda: _on_card(ds.decode_sequencer_reference(*cpu_args)),
+        n_bytes=n_comp + 2 * B * i4 + B * D + 2 * B * i4,
+        n_ops=4 * B * D, plain_reps=1)
+
+    by_path = {}
+
+    def run_path(path, call, kname):
+        """Counts at 0, one call, the launches read; the path must launch
+        ``kname`` once and no other kernel."""
+        for row in rows:
+            setattr(row["module"], row["counter"], 0)
+        t = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = {row["name"]: getattr(row["module"], row["counter"])
+                    for row in rows}
+        by_path[path] = launches
+        if launches != {**{k: 0 for k in launches}, kname: 1}:
+            fail(f"{path}: launches {launches}, the path makes one "
+                 f"{kname} and nothing else")
+        return got, first_ms
+
+    def host_ms(call, n=REPS):
+        walls = []
+        for _ in range(n):
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return walls
+
+    # ---- slice phase: strict encode -------------------------------------
+    def strict_call():
+        return cuda_engine.compress_blocks(blocks, device="cuda")
+
+    got, first_ms = run_path("strict_encode", strict_call,
+                             "encode_sequencer")
+    if got != packed:
+        bad = [j for j, (g, p) in enumerate(zip(got, packed)) if g != p]
+        fail(f"strict encode differs from the reference compressor in "
+             f"blocks {bad[:10]}")
+    if codec.encode(blocks[0]) != packed[0]:
+        fail("codec.encode (strict) differs from the reference compressor")
+    tight = len(packed[0]) - 1
+    if codec.encode(blocks[0], tight) != b"" \
+            or reference.compress_block(blocks[0], tight) != b"":
+        fail("a budget overflow did not return b''")
+    walls = host_ms(strict_call)
+    dev_ms = time_ms(torch, lambda: es.encode_sequencer(src, src_len, cap,
+                                                         O))
+    late = statistics.median(walls)
+    print(f"strict encode slice: {B} blocks equal the reference "
+          f"compressor's ({n_comp} bytes), codec.encode equal, a budget "
+          f"overflow gives b''; compress_blocks first call {first_ms:.2f} "
+          f"ms, then (ms): " + " ".join(f"{w:.2f}" for w in walls)
+          + f"; median {late:.2f} ms per {B}-block batch, "
+          f"{n_data / late / 1e6:.4f} GB/s of input (host clock, end to "
+          f"end); device pass {dev_ms:.3f} ms, "
+          f"{n_data / dev_ms / 1e6:.3f} GB/s; {card}")
+    where_the_time_goes(torch, strict_call, "compress_blocks", n_data,
+                        "of input", card)
+
+    # ---- slice phase: sequencer decode ----------------------------------
+    def seq_call():
+        return ds.SequencerDecoder("cuda").decode_batch(packed, lens)
+
+    got, first_ms = run_path("sequencer_decode", seq_call,
+                             "decode_sequencer")
+    if got != blocks:
+        bad = [j for j, (g, b) in enumerate(zip(got, blocks)) if g != b]
+        fail(f"sequencer decode differs from the source in blocks "
+             f"{bad[:10]}")
+    off0 = bytearray(reference.compress_block(b"abcd" * 50))
+    off0[5:7] = b"\x00\x00"            # the first match's offset
+    for what, blk, n in (("truncated", packed[0][:len(packed[0]) // 2],
+                          lens[0]), ("offset-0", bytes(off0), 200)):
+        try:
+            ds.SequencerDecoder("cuda").decode_batch([blk], [n])
+        except reference.CorruptedBlockError:
+            print(f"sequencer decode: a {what} block raised "
+                  f"CorruptedBlockError")
+        else:
+            fail(f"sequencer decode accepted a {what} block")
+    # in turns: sequencer, vector, sequencer, vector, ...
+    seq_walls, vec_walls = [], []
+    for _ in range(REPS):
+        seq_walls += host_ms(seq_call, 1)
+        vec_walls += host_ms(lambda: codec.decode_batch(packed, lens,
+                                                        device="cuda"), 1)
+    dev_ms = time_ms(torch, lambda: ds.decode_sequencer(comp, comp_len,
+                                                         out_len, D))
+    seq, vec = statistics.median(seq_walls), statistics.median(vec_walls)
+    print(f"sequencer decode slice: {B} blocks byte-exact, truncated and "
+          f"offset-0 blocks raise; first call {first_ms:.2f} ms, then "
+          f"(ms): " + " ".join(f"{w:.2f}" for w in seq_walls)
+          + f"; median {seq:.2f} ms per {B}-block batch, "
+          f"{n_data / seq / 1e6:.4f} GB/s decoded (host clock), beside the "
+          f"vector decoder's {vec:.2f} ms ({n_data / vec / 1e6:.4f} GB/s) "
+          f"in the same turns; device pass {dev_ms:.3f} ms, "
+          f"{n_data / dev_ms / 1e6:.3f} GB/s; {card}")
+    where_the_time_goes(torch, seq_call, "SequencerDecoder.decode_batch",
+                        n_data, "decoded", card)
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -556,12 +751,14 @@ def main() -> int:
 
     def kernel_row(kname, source, replaces, mod, fn, plain, n_bytes,
                    n_ops, library=None, plain_reps=REPS, counter="launches",
-                   variant=None):
+                   variant=None, defined=None):
         """Check ``fn`` (the kernel) against ``plain`` and time both; a
-        ``variant`` adds these numbers to kernel ``kname``'s row."""
+        ``variant`` adds these numbers to kernel ``kname``'s row;
+        ``defined`` maps outputs to the part the kernel defines."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
+        err = max_abs_err(torch, defined(got) if defined else got,
+                          defined(want) if defined else want)
         if err != 0:
             fail(f"{kname}: kernel differs from its plain version "
                  f"(max abs err {err})")
@@ -687,10 +884,12 @@ def main() -> int:
 
     enc_launches, fast_total = encode_phases(torch, card, kernel_row,
                                              blocks, packed)
+    strict_launches = strict_phases(torch, card, kernel_row, rows, blocks,
+                                    packed)
     hc_launches = hc_phases(torch, card, kernel_row, rows, blocks,
                             fast_total)
     paths = [("decode", launches), ("encode", enc_launches),
-             *hc_launches.items()]
+             *strict_launches.items(), *hc_launches.items()]
     for row in rows:
         del row["module"], row["counter"]
         by_path = {path: counts[row["name"]] for path, counts in paths

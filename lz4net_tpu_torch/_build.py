@@ -39,6 +39,8 @@ SIGNATURES = {
     "lz4t_sequence_records": [_P] * 14 + [_I] * 6 + [_P],
     "lz4t_emit_bytes": [_P] * 8 + [_I, _I, _I, _P],
     "lz4t_hc_tables": [_P] * 4 + [_I] * 3 + [_P],
+    "lz4t_encode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
+    "lz4t_decode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 _lib = None

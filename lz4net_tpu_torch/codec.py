@@ -1,6 +1,6 @@
 """Block facade of the CUDA port (counterpart of ``lz4net_tpu/codec.py``:
-fast encode, :33-66, fast-HC encode, :69-101, and known-length decode,
-:104-157)."""
+strict and fast encode, :33-66, fast-HC encode, :69-101, and known-length
+decode, :104-157)."""
 
 from __future__ import annotations
 
@@ -14,11 +14,13 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
            device="cuda") -> bytes:
     """Greedy LZ4 block compression.
 
-    ``mode="fast"`` runs the vector encoder on the card: format-valid
-    output, byte-identical to the JAX package's fast mode, not to the
-    reference parse.  Returns b"" when the result would not fit
-    ``dst_maxlen`` (default: the worst-case bound).  ``mode="strict"``
-    (the reference parse) and ``dictionary`` are not ported yet.
+    ``mode="strict"`` (the default) runs the strict sequencer encoder on
+    the card: the reference parse, byte-identical to the JAX package's
+    ``encode`` and to the reference compressor.  ``mode="fast"`` runs the
+    vector encoder on the card: format-valid output, byte-identical to the
+    JAX package's fast mode, not to the reference parse.  Returns b"" when
+    the result would not fit ``dst_maxlen`` (default: the worst-case
+    bound).  ``dictionary`` is not ported yet.
     """
     if mode not in ("strict", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -26,14 +28,12 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
         raise NotImplementedError(
             "preset-dictionary encode is not ported yet: ROADMAP.md queue "
             "A, item 7")
-    if mode == "strict":
-        raise NotImplementedError(
-            "strict encode is not ported yet: ROADMAP.md queue A, item 8; "
-            "use mode='fast'")
     if len(src) == 0:
         return b""
     if dst_maxlen is None:
         dst_maxlen = maximum_output_length(len(src))
+    if mode == "strict":
+        return CudaService(device).encode(bytes(src), dst_maxlen)
     return cuda.compress_blocks_fast([bytes(src)], [dst_maxlen], device)[0]
 
 

@@ -1,12 +1,16 @@
-"""The CUDA engine: known-length block decode, and fast greedy and
+"""The CUDA engine: known-length block decode, and strict, fast greedy and
 fast-HC block encode on the card.
 
-Port of the decode entry points of ``lz4net_tpu/models/tpu.py``
-(:127-154), of its ``compress_blocks_fast`` (:83-92) and of its
-``compress_blocks_hc_fast`` (:117-124).  The JAX package
-makes a decoder or encoder per call; here one ``VectorDecoder`` and one
-``VectorEncoder`` per device are kept, so their ``host_decodes`` and
-``host_encodes`` counts can be read after a run.
+Port of the entry points of ``lz4net_tpu/models/tpu.py``: strict encode
+(``compress_block``, ``compress_blocks``, :66-80), ``compress_blocks_fast``
+(:83-92), ``compress_blocks_hc_fast`` (:117-124) and known-length decode
+(:127-154).  The JAX package makes a decoder or encoder per call; here
+one vector decoder and one vector encoder per device are kept, so their
+``host_decodes`` and ``host_encodes`` counts can be read after a run.
+Decode runs the vector decoder, as on the TPU; the sequencer decoder
+(``ops.decode_sequencer.SequencerDecoder``, which the JAX package picks
+off the TPU or by ``LZ4NET_TPU_DECODER``) is called directly by what
+needs its status check.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.decode_vector import VectorDecoder, resolve_device
+from ..ops.encode_sequencer import SequencerEncoder
+from ..ops.encode_sequencer import compress_block  # noqa: F401 (one block)
 from ..ops.encode_vector import VectorEncoder
 
 _DECODERS: dict[torch.device, VectorDecoder] = {}
@@ -24,16 +30,19 @@ def is_available() -> bool:
     return torch.cuda.is_available()
 
 
+def _kept(cache, cls, device):
+    device = resolve_device(device)     # raises for CUDA without a card
+    if device not in cache:
+        cache[device] = cls(device)
+    return cache[device]
+
+
 def decoder(device="cuda") -> VectorDecoder:
-    """The decoder serving ``device`` (raises for CUDA without a card)."""
-    device = resolve_device(device)
-    if device not in _DECODERS:
-        _DECODERS[device] = VectorDecoder(device)
-    return _DECODERS[device]
+    """The vector decoder serving ``device``."""
+    return _kept(_DECODERS, VectorDecoder, device)
 
 
-def decompress_block(src: bytes, output_length: int,
-                     device="cuda") -> bytes:
+def decompress_block(src: bytes, output_length: int, device="cuda") -> bytes:
     return decoder(device).decode_batch([bytes(src)], [output_length])[0]
 
 
@@ -43,12 +52,17 @@ def decompress_blocks(blocks, out_lens, device="cuda"):
 
 
 def encoder(device="cuda") -> VectorEncoder:
-    """The fast and fast-HC encoder serving ``device`` (raises for CUDA without a
-    card)."""
-    device = resolve_device(device)
-    if device not in _ENCODERS:
-        _ENCODERS[device] = VectorEncoder(device)
-    return _ENCODERS[device]
+    """The fast and fast-HC encoder serving ``device``."""
+    return _kept(_ENCODERS, VectorEncoder, device)
+
+
+def compress_blocks(blocks, dst_maxlens=None, device="cuda"):
+    """Batched strict encode, one launch for the batch: each payload is
+    the reference compressor's bytes, or b"" when longer than its
+    ``dst_maxlens`` entry.  Every block size runs on the card (the JAX
+    package sends blocks over 48 KB to its host oracle); one block:
+    ``compress_block``."""
+    return SequencerEncoder(device).encode_batch(list(blocks), dst_maxlens)
 
 
 def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):

@@ -1,6 +1,6 @@
 """Engine adapter for the CUDA port (counterpart of ``TpuService`` in
-``lz4net_tpu/models/service_adapters.py:92-128``): known-length decode
-only, the part of the service this port slice carries."""
+``lz4net_tpu/models/service_adapters.py:92-128``): strict encode and
+known-length decode, the parts of the service the port carries so far."""
 
 from __future__ import annotations
 
@@ -8,13 +8,17 @@ from . import cuda
 
 
 class CudaService:
-    """Batched CUDA decode engine over independent blocks."""
+    """Batched CUDA engine over independent blocks."""
 
     codec_name = "cuda"
 
     def __init__(self, device="cuda"):
         self.device = device
         cuda.decoder(device)     # raises for CUDA without a card
+
+    def encode(self, src: bytes, dst_maxlen: int) -> bytes:
+        """Strict encode: the reference compressor's bytes, on the card."""
+        return cuda.compress_block(src, dst_maxlen, self.device)
 
     def decode(self, src: bytes, output_length: int) -> bytes:
         return cuda.decompress_block(src, output_length, self.device)

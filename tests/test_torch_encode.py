@@ -89,8 +89,8 @@ def test_unported_requests_raise():
         enc.encode_batch([b"abc" * 100], dictionary=b"abc")
     with pytest.raises(NotImplementedError, match="item 7"):
         enc.encode_batch([b"abc" * 100], hc_level=9, dictionary=b"abc")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        codec.encode(b"abc" * 100, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        codec.encode(b"abc" * 100, dictionary=b"abc", device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         codec.encode(b"abc" * 100, dictionary=b"abc", mode="fast",
                      device="cpu")

@@ -21,6 +21,8 @@ from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
+from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
+from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import (emit_kernel, fused_gather,  # noqa: E402
                                   hash_kernel, mlen_kernel, parse_kernel,
                                   records_kernel, resolve_kernel, seq_kernel)
@@ -31,7 +33,7 @@ DECODE_KERNELS = (parse_kernel, records_kernel, fused_gather, resolve_kernel)
 # the encode path's four kernels, and the gather it shares with decode
 ENCODE_KERNELS = (hash_kernel, mlen_kernel, seq_kernel, emit_kernel,
                   fused_gather)
-KERNELS = DECODE_KERNELS + ENCODE_KERNELS[:4]
+KERNELS = DECODE_KERNELS + ENCODE_KERNELS[:4] + (es, ds)
 
 
 def _imported_modules(path):
@@ -58,12 +60,14 @@ def test_every_kernel_has_its_source_and_entry():
     names = {p.stem for p in (ROOT / "lz4net_tpu_torch" / "csrc").glob("*.cu")}
     assert names == {"parse_kernel", "records_kernel", "fused_gather",
                      "resolve_kernel", "hash_kernel", "mlen_kernel",
-                     "seq_kernel", "emit_kernel", "hc_kernel"}
+                     "seq_kernel", "emit_kernel", "hc_kernel",
+                     "encode_sequencer", "decode_sequencer"}
     assert set(_build.SIGNATURES) == {
         "lz4t_parse_tokens", "lz4t_records_to_state",
         "lz4t_rowbase_gather", "lz4t_resolve_wavefront",
         "lz4t_bucket_prev", "lz4t_match_lengths", "lz4t_sequence_records",
-        "lz4t_emit_bytes", "lz4t_hc_tables"}
+        "lz4t_emit_bytes", "lz4t_hc_tables", "lz4t_encode_sequencer",
+        "lz4t_decode_sequencer"}
     for mod in KERNELS:
         assert mod.launches >= 0
     assert hash_kernel.hc_launches >= 0
@@ -88,6 +92,14 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         cuda_engine.compress_blocks_fast([b"abc" * 10])
     with pytest.raises(RuntimeError, match="cuda"):
         codec.encode(b"abc" * 10, mode="fast")
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode(b"abc" * 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CudaService().encode(b"abc" * 10, 100)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cuda_engine.compress_blocks([b"abc" * 10])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ds.SequencerDecoder()
 
 
 def test_wrappers_refuse_other_devices():
@@ -118,6 +130,11 @@ def test_wrappers_refuse_other_devices():
         emit_kernel.emit_bytes(meta, meta, meta, meta, meta, lens, 8192)
     with pytest.raises(ValueError, match="device"):
         hash_kernel.hc_tables(meta, [meta], [False], [8], 4096)
+    meta8 = meta.to(torch.uint8)
+    with pytest.raises(ValueError, match="device"):
+        es.encode_sequencer(meta8, lens, lens, 64)
+    with pytest.raises(ValueError, match="device"):
+        ds.decode_sequencer(meta8, lens, lens, 64)
 
 
 def test_corpus_matches_jax_apart_from_its_generated_source_part():
@@ -151,6 +168,10 @@ def test_cpu_path_launches_no_kernel():
     for level in (5, 9):
         hc = codec.encode_hc(data, level=level, mode="fast", device="cpu")
         assert reference.decompress_block(hc, len(data)) == data
+    strict = codec.encode(data, device="cpu")
+    assert strict == reference.compress_block(data)
+    assert ds.SequencerDecoder("cpu").decode_batch([strict], [len(data)]) \
+        == [data]
     assert [m.launches for m in KERNELS] + [hash_kernel.hc_launches] \
         == before
 
@@ -421,3 +442,72 @@ def test_compress_blocks_hc_fast_on_the_card(cuda, blocks):
         assert codec.decode_batch(got, [len(b) for b in plain]) == plain
     assert codec.encode_hc(plain[0], mode="fast") \
         == cuda_engine.compress_blocks_hc_fast(plain[:1])[0]
+
+
+def _rows(rows, width=None):
+    """rows as a [B, width] uint8 tensor (zero padded) and their lengths."""
+    width = width or max(map(len, rows))
+    x = np.zeros((len(rows), width), np.uint8)
+    for j, r in enumerate(rows):
+        x[j, :len(r)] = np.frombuffer(r, np.uint8)
+    return (torch.from_numpy(x),
+            torch.tensor([len(r) for r in rows], dtype=torch.int32))
+
+
+def _junk_rows():
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, 256, 4000, np.uint8).tobytes(),
+            rng.integers(0, 256, 9000, np.uint8).tobytes(),
+            b"\xff" * 3000,
+            reference.compress_block(b"abc" * 3000)[:50]]
+
+
+@pytest.mark.gpu
+def test_encode_sequencer_matches_plain_version_on_the_card(cuda, blocks):
+    """The 512 KB corpus at the worst-case budget, then the junk rows as
+    sources with budgets and an O that some payloads overflow."""
+    plain, packed = blocks
+    src, lens = _rows(plain)
+    cap = torch.tensor([n + n // 255 + 16 for n in lens.tolist()],
+                       dtype=torch.int32)
+    for src, lens, cap, O in (
+            (src, lens, cap, int(cap.max())),
+            (*_rows(_junk_rows()), torch.tensor([4100, 9000, 40, 10],
+                                                dtype=torch.int32), 4200)):
+        before = es.launches
+        out, written = es.encode_sequencer(src.to(cuda), lens.to(cuda),
+                                           cap.to(cuda), O)
+        assert es.launches == before + 1
+        want, want_written = es.encode_sequencer_reference(src, lens, cap, O)
+        _equal([written], [want_written])
+        # a row is defined up to its payload's length
+        for got_row, want_row, n in zip(out.cpu(), want,
+                                        want_written.tolist()):
+            assert torch.equal(got_row[:max(n, 0)], want_row[:max(n, 0)])
+    assert cuda_engine.compress_blocks(plain) == packed
+    assert codec.encode(plain[0]) == packed[0]
+
+
+@pytest.mark.gpu
+def test_decode_sequencer_matches_plain_version_on_the_card(cuda, blocks):
+    """The 512 KB corpus compressed, then the junk rows, a block ending in
+    a match and one with offset 0: status and bytes equal."""
+    plain, packed = blocks
+    out_lens = torch.tensor([len(b) for b in plain], dtype=torch.int32)
+    off0 = bytearray(reference.compress_block(b"abcd" * 50))
+    off0[5:7] = b"\x00\x00"
+    for rows, n in ((packed, out_lens),
+                    (_junk_rows() + [b"\x15a\x01\x00", bytes(off0)],
+                     torch.tensor([9000, 20000, 4000, 9000, 10, 200],
+                                  dtype=torch.int32))):
+        comp, comp_len = _rows(rows)
+        D = int(n.max())
+        before = ds.launches
+        got = ds.decode_sequencer(comp.to(cuda), comp_len.to(cuda),
+                                  n.to(cuda), D)
+        assert ds.launches == before + 1
+        _equal(got, ds.decode_sequencer_reference(comp, comp_len, n, D))
+    dec = ds.SequencerDecoder()
+    assert dec.decode_batch(packed, out_lens.tolist()) == plain
+    with pytest.raises(reference.CorruptedBlockError):
+        dec.decode_batch([packed[0][:100]], [len(plain[0])])

@@ -1,0 +1,104 @@
+"""The port's strict encode on the CPU (``encode_sequencer``'s plain
+version), held byte for byte against the JAX package:
+
+* ``PallasEncoder(interpret=True)`` on one mixed batch of the small cases
+  of ``tests/test_tpu_encode.py``, with a budget overflow in it;
+* the JAX package's oracle, which its tests hold bit-identical to that
+  kernel, at full width: a 64 KB block, blocks of ``LZ4_64KLIMIT`` - 1,
+  ``LZ4_64KLIMIT`` and + 1 bytes (the two hash variants) and 128 KB;
+* the facade: ``codec.encode`` against the JAX ``codec.encode`` (strict).
+"""
+
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lz4net_tpu import codec as jcodec  # noqa: E402
+from lz4net_tpu.models import native  # noqa: E402
+from lz4net_tpu.models import reference as jreference  # noqa: E402
+from lz4net_tpu.ops.encode_pallas import PallasEncoder  # noqa: E402
+from lz4net_tpu_torch import codec  # noqa: E402
+from lz4net_tpu_torch.constants import LZ4_64KLIMIT  # noqa: E402
+from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
+from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
+from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
+from lz4net_tpu_torch.utils import corpus  # noqa: E402
+
+CASES = {
+    "text": (b"the quick brown fox jumps over the lazy dog. " * 120)[:4000],
+    "rle": b"\x05" * 3000,
+    "period2": b"ab" * 1500,
+    "incompressible": bytes(map(random.Random(1).randrange, [256] * 2000)),
+    "tiny_literal": b"x" * 12,
+    "min_match_len": b"x" * 13,
+    "long_runs": b"z" * 300 + bytes(range(256)) + b"z" * 300,
+}
+
+
+def _oracle(data, maxlen=None):
+    if native.is_available():
+        return native.compress_block(data, maxlen)
+    return jreference.compress_block(data, maxlen)
+
+
+def _sil(n, seed):
+    return corpus.silesia_like(n, seed=seed)
+
+
+def test_plain_matches_pallas_encoder_on_small_cases():
+    datas = list(CASES.values())
+    rng = random.Random(2)
+    overflow = bytes(rng.getrandbits(8) for _ in range(1500))
+    datas.append(overflow)
+    maxlens = [len(d) + len(d) // 255 + 16 for d in datas[:-1]]
+    maxlens.append(len(overflow))                 # does not fit: b""
+    want = PallasEncoder(interpret=True).encode_batch(datas, maxlens)
+    assert want[-1] == b""
+    assert es.SequencerEncoder("cpu").encode_batch(datas, maxlens) == want
+    assert want[:-1] == [_oracle(d) for d in datas[:-1]]
+
+
+@pytest.mark.parametrize("size", [1 << 16, LZ4_64KLIMIT - 1, LZ4_64KLIMIT,
+                                  LZ4_64KLIMIT + 1, 1 << 17])
+def test_plain_matches_oracle_at_full_width(size):
+    data = _sil(size, seed=size % 7)
+    assert cuda_engine.compress_block(data, device="cpu") == _oracle(data)
+
+
+def test_tensor_interface():
+    """written is the payload length or -1, the plain version leaves the
+    row 0 past it (the kernel leaves it undefined), and an O too small
+    for the payload gives -1 like an overflow."""
+    datas = [CASES["text"], CASES["incompressible"], b"", b"abc" * 10]
+    S = max(map(len, datas))
+    src = np.zeros((len(datas), S), np.uint8)
+    for i, d in enumerate(datas):
+        src[i, :len(d)] = np.frombuffer(d, np.uint8)
+    src = torch.from_numpy(src)
+    lens = torch.tensor([len(d) for d in datas], dtype=torch.int32)
+    maxlens = torch.tensor([5000, 1000, 16, 0], dtype=torch.int32)
+    out, written = es.encode_sequencer(src, lens, maxlens, 5000)
+    want = _oracle(datas[0])
+    assert written.tolist() == [len(want), -1, 1, -1]
+    assert out[0, :len(want)].numpy().tobytes() == want
+    assert not out[0, len(want):].any() and not out[1:].any()
+    _, written = es.encode_sequencer(src, lens, maxlens, len(want) - 1)
+    assert written[0] == -1
+    with pytest.raises(TypeError):
+        es.encode_sequencer(src.to(torch.int32), lens, maxlens, 64)
+
+
+def test_codec_encode_strict_matches_jax_codec():
+    data = _sil(50000, seed=1)
+    want = jcodec.encode(data)
+    assert codec.encode(data, device="cpu") == want
+    assert codec.encode(data, mode="strict", device="cpu") == want
+    assert codec.encode(data, 1000, device="cpu") == jcodec.encode(data, 1000)
+    assert codec.encode(b"", device="cpu") == b""
+    assert CudaService("cpu").encode(data, len(want)) == want
+    blocks = [data[:30000], data[30000:], CASES["rle"]]
+    assert cuda_engine.compress_blocks(blocks, device="cpu") \
+        == [_oracle(b) for b in blocks]
