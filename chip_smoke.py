@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the eleven CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
+2. builds the fifteen CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
 3. runs each decode kernel and its plain PyTorch version on the card on
    the same inputs, at the shapes of the decode path below, requires
    every int output to be equal, and times both (CUDA events around 10
@@ -60,7 +60,24 @@
    late calls), GB/s of input, the device pass alone, the compressed
    size beside fast mode's and, for the first 8 blocks, beside the
    reference HC compressor's (models.reference.compress_block_hc);
-12. prints one JSON line with the kernels (each with its launches by
+12. the chain record path's kernels at the fast path's shapes:
+   mark_chain on the parse chain of the 256 blocks' match state, and
+   table_gather on the offsets and lengths at the tokens and on the
+   catch-up words, each beside torch.gather; lane_lookup and diag_gather
+   at tools/probe_fused.py's shapes with B=256, each against its plain
+   version and beside torch.gather;
+13. the probe phase: lane_lookup and diag_gather through their entry
+   points, checked as tools/probe_fused.py checks them (their only
+   caller);
+14. encodes the 256 blocks through
+   lz4net_tpu_torch.ops.encode_vector.encode_batch_chain in fast mode and
+   at HC level 9; requires for each every kernel of its path launched as
+   often as the path says (sequence_records never), every block to
+   encode on the device, every payload to equal the sequence_records
+   path's (encode_batch_vectorized) and to decode to its source on the
+   host and on the card; prints ms per batch for both paths in turns
+   (host clock) and their device passes;
+15. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -520,6 +537,214 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     return by_path
 
 
+# launches a batch of each chain record path: (path, level) -> counts
+CHAIN_PATHS = (
+    ("chain_fast", 0, {"bucket_prev": 1, "hc_tables": 0, "match_lengths": 1,
+                       "mark_chain": 1, "table_gather": 7,
+                       "sequence_records": 0, "emit_bytes": 1,
+                       "rowbase_gather": 1}),
+    ("chain_hc9", 9, {"bucket_prev": 0, "hc_tables": 0, "match_lengths": 8,
+                      "mark_chain": 1, "table_gather": 19,
+                      "sequence_records": 0, "emit_bytes": 1,
+                      "rowbase_gather": 1}),
+)
+
+
+def chain_phases(torch, card, kernel_row, rows, blocks):
+    """Steps 12-14 of the module docstring.  Returns the launches by path
+    and kernel."""
+    import numpy as np
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import chain_kernel, fused_gather, seq_kernel
+    from lz4net_tpu_torch.ops import encode_vector as ev
+
+    lens = [len(b) for b in blocks]
+    n_data = sum(lens)
+    B = len(blocks)
+    D, O, S_cap = ev.batch_shapes(max(lens))
+    xn = np.zeros((B, D), np.uint8)
+    for j, b in enumerate(blocks):
+        xn[j, :len(b)] = np.frombuffer(b, np.uint8)
+    x = torch.from_numpy(xn).to("cuda").to(torch.int32)
+    dl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    i4 = 4
+
+    # ---- per-kernel phase: the fast path's operands ----------------------
+    u32, matched, off_all, mlen_all = ev._match_stage(x, dl, D, ev.RCAP, 0,
+                                                      None)
+    m = matched == 1
+    g = seq_kernel.chain_graph(m, mlen_all, D)
+    # the mark row written whole, g read at the orbit's positions
+    mark = kernel_row(
+        "mark_chain", "lz4net_tpu_torch/csrc/chain_kernel.cu",
+        "lz4net_tpu/ops/chain_kernel.py:83", chain_kernel,
+        lambda: chain_kernel.mark_chain(g, D),
+        lambda: chain_kernel.mark_chain_reference(g, D),
+        n_bytes=lambda got: B * D * i4 + int(got.sum()) * i4,
+        n_ops=B * D, plain_reps=1)
+    tok = seq_kernel.compact_indices((mark == 1) & m, S_cap, D) \
+        .clamp(0, D - 1)
+    tok64 = tok.long()
+    pairs = [off_all, mlen_all]
+    print(f"chain shapes: B={B} D={D} S_cap={S_cap}, "
+          f"{int(((mark == 1) & m).sum())} tokens")
+    # an index, and per table an entry read and a value written, a slot
+    kernel_row(
+        "table_gather", "lz4net_tpu_torch/csrc/fused_gather.cu",
+        "lz4net_tpu/ops/fused_gather.py:296", fused_gather,
+        lambda: fused_gather.table_gather(pairs, tok, (17, 17)),
+        lambda: fused_gather.table_gather_reference(pairs, tok, (17, 17)),
+        n_bytes=B * S_cap * i4 * 5, n_ops=B * S_cap * 8,
+        library=lambda: [torch.gather(t, 1, tok64) for t in pairs],
+        counter="table_launches")
+    pa = (tok - 4).clamp(0, D - 1)
+    pa64 = pa.long()
+    kernel_row(
+        "table_gather", "", "", fused_gather,
+        lambda: fused_gather.table_gather([u32], pa, (32,)),
+        lambda: fused_gather.table_gather_reference([u32], pa, (32,)),
+        n_bytes=B * S_cap * i4 * 3, n_ops=B * S_cap * 6,
+        library=lambda: torch.gather(u32, 1, pa64),
+        variant="catch-up words, 1 table of 32 bits")
+
+    # lane_lookup and diag_gather at tools/probe_fused.py's shapes, B=256
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    M = B * 544
+    lt, li = rand(0, 1 << 20, (M, 128)), rand(0, 128, (M, 128))
+    li64 = li.long()
+    kernel_row(
+        "lane_lookup", "lz4net_tpu_torch/csrc/fused_gather.cu",
+        "lz4net_tpu/ops/fused_gather.py:95", fused_gather,
+        lambda: fused_gather.lane_lookup(lt, li),
+        lambda: fused_gather.lane_lookup_reference(lt, li),
+        n_bytes=3 * M * 128 * i4, n_ops=M * 128 * 3,
+        library=lambda: torch.gather(lt, 1, li64), counter="lane_launches")
+    N = 69632
+    dt = rand(0, 256, (B, N))
+    q = torch.arange(N, dtype=torch.int32, device="cuda")
+    di = (q + rand(-128, 15 * 128, (B, N))).clamp(0, N - 1)
+    di64 = di.long()
+    kernel_row(
+        "diag_gather", "lz4net_tpu_torch/csrc/fused_gather.cu",
+        "lz4net_tpu/ops/fused_gather.py:143", fused_gather,
+        lambda: fused_gather.diag_gather(dt, di, 1, 16),
+        lambda: fused_gather.diag_gather_reference(dt, di, 1, 16),
+        n_bytes=B * N * (3 * i4 + 1), n_ops=B * N * 8,
+        library=lambda: torch.gather(dt, 1, di64), counter="diag_launches")
+
+    by_path = {}
+    counted = {row["name"]: row for row in rows}
+
+    def zero_counts():
+        for row in rows:
+            setattr(row["module"], row["counter"], 0)
+
+    def read_counts(want):
+        return {k: getattr(counted[k]["module"], counted[k]["counter"])
+                for k in want}
+
+    # ---- probe phase: the only caller of lane_lookup and diag_gather -----
+    # tools/probe_fused.py's checks through the port's entry points, with
+    # their answers from torch.gather and the band's definition
+    zero_counts()
+    got = fused_gather.lane_lookup(lt, li)
+    vals, band = fused_gather.diag_gather(dt, di, 1, 16)
+    torch.cuda.synchronize()
+    by_path["probe"] = read_counts(("lane_lookup", "diag_gather"))
+    if by_path["probe"] != {"lane_lookup": 1, "diag_gather": 1}:
+        fail(f"probe: launches {by_path['probe']}")
+    rows_d = (di >> 7) - (q >> 7)
+    if not torch.equal(got, torch.gather(lt, 1, li64)) \
+            or not torch.equal(band, (rows_d >= -1) & (rows_d < 15)) \
+            or not torch.equal(vals[band], torch.gather(dt, 1, di64)[band]):
+        fail("probe: lane_lookup or diag_gather gave a wrong answer")
+    print(f"probe phase: lane_lookup and diag_gather answer as "
+          f"tools/probe_fused.py checks, one launch each; {card}")
+
+    # ---- slice phases: the chain record path, fast and HC level 9 --------
+    def payloads(fn, level):
+        """A batch through ``fn`` as VectorEncoder drives its device pass:
+        the bytes shipped as uint8, widened on the card, the payloads
+        fetched as bytes."""
+        xt = torch.from_numpy(xn).to("cuda").to(torch.int32)
+        out, out_len, ok = fn(xt, torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda"),
+                              D, O, S_cap, ev.hc_rcap(level, D), level)
+        out = out.to(torch.uint8).cpu().numpy()
+        out_len, ok = out_len.cpu().numpy(), ok.cpu().numpy()
+        return [out[j, :int(n)].tobytes() for j, n in enumerate(out_len)], ok
+
+    for path, level, want in CHAIN_PATHS:
+        zero_counts()
+        t = time.perf_counter()
+        got, ok = payloads(ev.encode_batch_chain, level)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = read_counts(want)
+        by_path[path] = launches
+        if launches != want:
+            fail(f"{path}: launches {launches}, the path makes {want}")
+        if not ok.all():
+            fail(f"{path}: blocks {np.flatnonzero(~ok)[:10]} flagged")
+        seq, seq_ok = payloads(ev.encode_batch_vectorized, level)
+        if got != seq or not seq_ok.all():
+            bad = [j for j, (a, b) in enumerate(zip(got, seq)) if a != b]
+            fail(f"{path}: payloads of blocks {bad[:10]} differ from the "
+                 f"sequence_records path's")
+        bad = [j for j, (p, b) in enumerate(zip(got, blocks))
+               if reference.decompress_block(p, len(b)) != b]
+        if bad:
+            fail(f"{path}: blocks {bad[:10]} do not decode to their source "
+                 f"on the host")
+        if codec.decode_batch(got, lens, device="cuda") != blocks:
+            fail(f"{path}: blocks do not decode to their source on the card")
+        total = sum(map(len, got))
+        # in turns: chain, sequence, chain, sequence, ...
+        chain_walls, seq_walls = [], []
+        for _ in range(REPS):
+            for walls, fn in ((chain_walls, ev.encode_batch_chain),
+                              (seq_walls, ev.encode_batch_vectorized)):
+                t = time.perf_counter()
+                payloads(fn, level)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+        inner = 10 if level == 0 else 3
+        dev = {}
+        for name, fn in (("chain", ev.encode_batch_chain),
+                         ("sequence", ev.encode_batch_vectorized),
+                         ("chain again", ev.encode_batch_chain)):
+            dev[name] = time_ms(torch, lambda: fn(
+                x, dl, D, O, S_cap, ev.hc_rcap(level, D), level),
+                inner=inner)
+        chain_ms, seq_ms = (statistics.median(chain_walls),
+                            statistics.median(seq_walls))
+        print(f"{path} slice (level {level}): {B} blocks, launches "
+              f"{launches}, every payload equal to the sequence_records "
+              f"path's and decodes on the host and the card, first call "
+              f"{first_ms:.2f} ms; {total} compressed bytes "
+              f"({total / n_data:.4f} of input); later calls in turns (ms), "
+              f"chain: " + " ".join(f"{w:.2f}" for w in chain_walls)
+              + "; sequence: " + " ".join(f"{w:.2f}" for w in seq_walls)
+              + f"; medians {chain_ms:.2f} and {seq_ms:.2f} ms per {B}-block "
+              f"batch ({n_data / chain_ms / 1e6:.4f} and "
+              f"{n_data / seq_ms / 1e6:.4f} GB/s of input, host clock); "
+              f"device pass chain {dev['chain']:.3f} ms, sequence "
+              f"{dev['sequence']:.3f} ms, chain again "
+              f"{dev['chain again']:.3f} ms; {card}")
+        if level == 0:
+            where_the_time_goes(
+                torch, lambda: payloads(ev.encode_batch_chain, 0),
+                "encode_batch_chain", n_data, "of input", card)
+    return by_path
+
+
 def _uint8_rows(torch, rows):
     """rows as a [B, max len] uint8 tensor on the card (zero padded) and
     their lengths as [B] int32."""
@@ -888,8 +1113,10 @@ def main() -> int:
                                     packed)
     hc_launches = hc_phases(torch, card, kernel_row, rows, blocks,
                             fast_total)
+    chain_launches = chain_phases(torch, card, kernel_row, rows, blocks)
     paths = [("decode", launches), ("encode", enc_launches),
-             *strict_launches.items(), *hc_launches.items()]
+             *strict_launches.items(), *hc_launches.items(),
+             *chain_launches.items()]
     for row in rows:
         del row["module"], row["counter"]
         by_path = {path: counts[row["name"]] for path, counts in paths

@@ -41,6 +41,10 @@ SIGNATURES = {
     "lz4t_hc_tables": [_P] * 4 + [_I] * 3 + [_P],
     "lz4t_encode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
     "lz4t_decode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
+    "lz4t_mark_chain": [_P] * 2 + [_I] * 2 + [_P],
+    "lz4t_table_gather": [_P] * 9 + [_I] * 8 + [_P],
+    "lz4t_lane_lookup": [_P] * 3 + [_I, _P],
+    "lz4t_diag_gather": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

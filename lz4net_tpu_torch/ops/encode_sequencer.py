@@ -112,7 +112,8 @@ class SequencerEncoder:
         if dst_maxlens is None:
             dst_maxlens = [maximum_output_length(len(b)) for b in blocks]
         S = max(max(map(len, blocks)), 1)
-        O = max(max(dst_maxlens), 1)
+        # no payload exceeds the bound, whatever a block's own cap
+        O = max(min(max(dst_maxlens), maximum_output_length(S)), 1)
         src = np.zeros((len(blocks), S), np.uint8)
         for i, b in enumerate(blocks):
             src[i, :len(b)] = np.frombuffer(b, np.uint8)

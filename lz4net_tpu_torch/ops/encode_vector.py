@@ -32,6 +32,14 @@ instead of the TPU kernel (large D with a large rcap), because of the
 TPU's VMEM; the two are bit-identical.  The CUDA ``match_lengths`` has
 no such limit up to D = 106496, so the port always calls its kernel.
 
+``encode_batch_chain`` is the same encoder with the JAX encoder's chain
+record path (its ``fused`` branch without the sequence megakernel,
+:785-906 there) in place of ``sequence_records``: ``chain_records``
+threads the parse chain with ``chain_kernel.mark_chain`` and gathers
+every token and record field through ``fused_gather.table_gather``.  It
+gives the same bytes; no entry point selects it, and callers that want
+it call it directly.
+
 The output is the JAX vector encoder's byte string exactly: format-valid
 LZ4 that any decoder reads, not the reference compressor's parse.  A
 block the device flags goes to the host compressor
@@ -48,13 +56,14 @@ from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
                          MINMATCH, maximum_output_length)
 from ..models import reference
 from .decode_vector import CH, _cdiv, resolve_device
+from .chain_kernel import mark_chain
 from .emit_kernel import emit_bytes
-from .fused_gather import rowbase_gather
+from .fused_gather import rowbase_gather, table_gather
 from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
                           hc_candidates)
 from .hash_kernel import shift_left as _shift_left
 from .mlen_kernel import match_lengths_fused, run_lengths
-from .seq_kernel import sequence_records
+from .seq_kernel import parse_records, sequence_records
 
 LANE = 128
 TOP_OFFSETS = 8      # dominant offsets given exact unbounded lengths
@@ -364,24 +373,14 @@ def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
     return matched, off_all, mlen_all
 
 
-def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
-                            rcap: int = RCAP, hc_level: int = 0,
-                            hc_tiers: str | None = None):
-    """Greedy-encode a batch of independent blocks.
-
-    x: [B, D] int32 bytes (zero padded), data_len: [B] int32,
-    D % 8192 == 0, O >= maximum_output_length(D) the padded output
-    width, S_cap the record cap (D // 4 + a margin never overflows).
-    ``hc_level`` 1-9 runs fast-HC; ``hc_tiers`` ("suffix", "hash",
-    "sort") overrides its level's tier policy.
-    Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool).
-    """
+def _match_stage(x, data_len, D: int, rcap: int, hc_level: int,
+                 hc_tiers: str | None):
+    """E1-E2: per-position (matched, off, mlen) and the u32 words.
+    Returns (u32, matched [B, D] int32 0/1, off_all, mlen_all)."""
     if hc_tiers not in (None,) + HC_TIERS:
         raise ValueError(f"hc_tiers must be one of {HC_TIERS} or None")
     hc_mode = hc_tiers or ("sort" if hc_level >= 8 else "suffix")
     exact = hc_level > 0 and hc_mode == "sort"
-    # no dictionary prefix in this slice: P = 0, pre_len = 0
-    pre_len = torch.zeros_like(data_len)
     u32 = _u32(x)
     u32s4 = _shift_left(u32, 4)
     i = torch.arange(D, dtype=torch.int32, device=x.device)
@@ -401,10 +400,14 @@ def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
         state = _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state,
                           data_len, D, rcap, hc_level, hc_mode)
     matched, off_all, mlen_all = state
+    return u32, matched.to(torch.int32), off_all, mlen_all
 
-    s0k, lit_src, lit_len, off_k, mlen_k, stats = sequence_records(
-        u32, matched.to(torch.int32), off_all, mlen_all, data_len, pre_len,
-        D, S_cap, P=0, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
+
+def _emit_stage(x, records, O: int, S_cap: int):
+    """E5: the compressed bytes from the sequence records (the outputs of
+    ``sequence_records`` or ``chain_records``).  Returns (out [B, O],
+    out_len [B], ok [B])."""
+    s0k, lit_src, lit_len, off_k, mlen_k, stats = records
     n_seqs, n_m, out_len = stats[:, 0], stats[:, 1], stats[:, 2]
     direct, cidx, miss = emit_bytes(s0k, lit_src, lit_len, off_k, mlen_k,
                                     out_len, O)
@@ -415,6 +418,60 @@ def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
         * (o[None, :] < out_len[:, None])
     ok = (n_seqs < S_cap) & (n_m < S_cap) & (miss == 0)
     return out, out_len, ok
+
+
+def _encode(records, x, data_len, D, O, S_cap, rcap, hc_level, hc_tiers):
+    """E1-E2, then ``records`` (``sequence_records`` or ``chain_records``)
+    for E3-E4, then E5."""
+    u32, matched, off_all, mlen_all = _match_stage(x, data_len, D, rcap,
+                                                   hc_level, hc_tiers)
+    # no dictionary prefix in this slice: P = 0, pre_len = 0
+    recs = records(
+        u32, matched, off_all, mlen_all, data_len, torch.zeros_like(data_len),
+        D, S_cap, P=0, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
+    return _emit_stage(x, recs, O, S_cap)
+
+
+def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
+                            rcap: int = RCAP, hc_level: int = 0,
+                            hc_tiers: str | None = None):
+    """Greedy-encode a batch of independent blocks.
+
+    x: [B, D] int32 bytes (zero padded), data_len: [B] int32,
+    D % 8192 == 0, O >= maximum_output_length(D) the padded output
+    width, S_cap the record cap (D // 4 + a margin never overflows).
+    ``hc_level`` 1-9 runs fast-HC; ``hc_tiers`` ("suffix", "hash",
+    "sort") overrides its level's tier policy.
+    Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool).
+    """
+    return _encode(sequence_records, x, data_len, D, O, S_cap, rcap,
+                   hc_level, hc_tiers)
+
+
+def chain_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
+                  D: int, S_cap: int, P: int = 0, cu_rounds: int = 2):
+    """``seq_kernel.sequence_records``' outputs (same arguments, same
+    layout) by the JAX encoder's chain record path, its branch with
+    ``fused`` on and the sequence megakernel off (:785-906 there): the
+    chain's orbit from ``chain_kernel.mark_chain``, every token and record
+    field gather through ``fused_gather.table_gather`` (one launch for
+    the offsets and lengths, two a catch-up round, one for the merge's
+    running sums and one for the merged records)."""
+    return parse_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
+                         D, S_cap, P, cu_rounds,
+                         lambda g: mark_chain(g, D),
+                         lambda tables_bits, idx: table_gather(
+                             [t for t, _ in tables_bits], idx,
+                             [b for _, b in tables_bits]))
+
+
+def encode_batch_chain(x, data_len, D: int, O: int, S_cap: int,
+                       rcap: int = RCAP, hc_level: int = 0,
+                       hc_tiers: str | None = None):
+    """``encode_batch_vectorized`` (same arguments and returns, the same
+    bytes) with ``chain_records`` in place of ``sequence_records``."""
+    return _encode(chain_records, x, data_len, D, O, S_cap, rcap, hc_level,
+                   hc_tiers)
 
 
 def batch_shapes(max_len: int):

@@ -5,6 +5,10 @@ sequence_records``.  The CUDA kernel is ``csrc/seq_kernel.cu`` (its
 header says what bounds it on the H100 and what the design does about
 that); ``sequence_records_reference`` is its plain PyTorch version, a
 port of the XLA stages E3-E5 of ``encode_vector._encode_batch_traced``.
+Those stages are ``parse_records``, which takes the chain's orbit and
+the field gathers as arguments: the plain version passes plain PyTorch
+ones, ``encode_vector.chain_records`` (the chain record path) the
+kernels ``chain_kernel.mark_chain`` and ``fused_gather.table_gather``.
 
 From per-position (matched, off, mlen):
 
@@ -109,38 +113,84 @@ def xor_match_bytes_rev(wa, wb):
     ).to(torch.int32)
 
 
+def _next_match_at_or_after(m, D: int):
+    """nm[b, i] = the first j >= i with m[b, j], else D (``encode_vector.
+    _next_match_at_or_after`` there)."""
+    i = torch.arange(D, dtype=torch.int32, device=m.device)
+    return torch.flip(torch.cummin(torch.flip(torch.where(m, i, D), [1]),
+                                   dim=1).values, [1])
+
+
+def compact_indices(mask, cap: int, big: int):
+    """The positions of ``mask [B, N]``'s set entries in ascending order,
+    the first ``cap`` of them, padded with ``big``: [B, cap] int32
+    (``banded.compact_indices`` there)."""
+    B, N = mask.shape
+    rank = torch.cumsum(mask, 1, dtype=torch.int32) - 1
+    dst = torch.where(mask & (rank < cap), rank, cap).long()
+    i = torch.arange(N, dtype=torch.int32, device=mask.device).expand(B, N)
+    return torch.full((B, cap + 1), big, dtype=torch.int32,
+                      device=mask.device).scatter_(1, dst, i)[:, :cap]
+
+
+def chain_graph(m, mlen_all, D: int):
+    """g[b, i]: the next token position if a token is taken at i (the
+    first match at or after the end of i's match where ``m`` [B, D] bool
+    is set, else the first match at or after i), at least i + 1 and at
+    most D."""
+    i = torch.arange(D, dtype=torch.int32, device=m.device)
+    nm = _next_match_at_or_after(m, D)
+    tgt = i + torch.where(m, mlen_all.clamp(0, D), 1)
+    nm_at_end = torch.where(tgt >= D, D, torch.gather(
+        nm, 1, tgt.clamp(0, D - 1).long()))
+    return torch.maximum(torch.where(m, nm_at_end, nm), i + 1)
+
+
+def _orbit(g):
+    """The orbit of 0 under g [B, D] (g <= D), by doubling."""
+    B, D = g.shape
+    end = torch.full((B, 1), D, dtype=g.dtype, device=g.device)
+    return _orbit_of_zero(torch.cat([g, end], 1))[:, :D]
+
+
+def _gather(tables_bits, idx):
+    """Each table at ``idx`` (in range; the widths are not needed)."""
+    return [torch.gather(t, 1, idx.long()) for t, _ in tables_bits]
+
+
 def sequence_records_reference(u32, matched, off_all, mlen_all, end_abs,
                                pre_len, D: int, S_cap: int, P: int = 0,
                                cu_rounds: int = 2):
     """Plain PyTorch version of ``sequence_records`` (same outputs)."""
+    return parse_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
+                         D, S_cap, P, cu_rounds, _orbit, _gather)
+
+
+def parse_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
+                  D: int, S_cap: int, P: int, cu_rounds: int, orbit,
+                  gather):
+    """``sequence_records``' outputs by the XLA stages E3-E5 of
+    ``encode_vector._encode_batch_traced`` there (:785-906), with the
+    chain's orbit from ``orbit(g)`` ([B, D] 0/1) and every gather of a
+    token or record field from ``gather([(table, bits), ...], idx)``
+    (a list of tables at ``idx``, whose entries are in range)."""
     i32 = torch.int32
     dev = u32.device
     B = u32.shape[0]
-    i = torch.arange(D, dtype=i32, device=dev).expand(B, D)
     k = torch.arange(S_cap, dtype=i32, device=dev).expand(B, S_cap)
     m = matched == 1
 
     # ---- E3: the greedy parse chain and its orbit from position 0 ----
-    nm = torch.flip(torch.cummin(torch.flip(torch.where(m, i, D), [1]),
-                                 dim=1).values, [1])
-    tgt = i + torch.where(m, mlen_all.clamp(0, D), 1)
-    nm_at_end = torch.where(tgt >= D, D, torch.gather(
-        nm, 1, tgt.clamp(0, D - 1).long()))
-    g = torch.maximum(torch.where(m, nm_at_end, nm), i + 1)
-    # column D is the chain's end (a fixed point)
-    g = torch.cat([g, torch.full((B, 1), D, dtype=i32, device=dev)], 1)
-    mark = (_orbit_of_zero(g)[:, :D] == 1) & m
+    mark = (orbit(chain_graph(m, mlen_all, D)) == 1) & m
     n_seqs = mark.sum(1, dtype=i32)
 
     # ---- E4: token slots, literal runs ----------------------------------
-    rank = torch.cumsum(mark, 1, dtype=i32) - 1
-    dst = torch.where(mark & (rank < S_cap), rank, S_cap).long()
-    tok = torch.full((B, S_cap + 1), D, dtype=i32, device=dev).scatter_(
-        1, dst, i)[:, :S_cap]
+    tok = compact_indices(mark, S_cap, D)
     valid = tok < D
     tok = tok.clamp(0, D - 1)
-    off_s = torch.where(valid, torch.gather(off_all, 1, tok.long()), 0)
-    mlen_s = torch.where(valid, torch.gather(mlen_all, 1, tok.long()), 0)
+    off_s, mlen_s = gather([(off_all, 17), (mlen_all, 17)], tok)
+    off_s = torch.where(valid, off_s, 0)
+    mlen_s = torch.where(valid, mlen_s, 0)
     prev_end = torch.cat([torch.full((B, 1), P, dtype=i32, device=dev),
                           (tok + mlen_s)[:, :-1]], 1)
     lit_start = torch.where(valid, prev_end, 0)
@@ -155,8 +205,8 @@ def sequence_records_reference(u32, matched, off_all, mlen_all, end_abs,
         cb_max = torch.minimum(lit_len, tok - off_s - floor_abs)
         pa = tok - cb - 4
         pb = tok - off_s - cb - 4
-        wa = torch.gather(u32, 1, pa.clamp(0, D - 1).long())
-        wb = torch.gather(u32, 1, pb.clamp(0, D - 1).long())
+        (wa,) = gather([(u32, 32)], pa.clamp(0, D - 1))
+        (wb,) = gather([(u32, 32)], pb.clamp(0, D - 1))
         nb = torch.where(can & (pa >= 0) & (pb >= 0),
                          xor_match_bytes_rev(wa, wb), 0)
         cb = torch.minimum(cb + nb, cb_max.clamp(min=0))
@@ -175,20 +225,18 @@ def sequence_records_reference(u32, matched, off_all, mlen_all, end_abs,
     nxt = torch.flip(torch.cummin(torch.flip(start_next, [1]), dim=1)
                      .values, [1])
     last = (nxt - 1).clamp(0, S_cap - 1)
-    merged = torch.gather(mcum, 1, last.long()) - (mcum - mlen_s)
+    (mcum_last,) = gather([(mcum, 21)], last)
+    merged = mcum_last - (mcum - mlen_s)
 
     keep = is_start & valid
     n_m = keep.sum(1, dtype=i32)
-    kdst = torch.where(keep, torch.cumsum(keep, 1, dtype=i32) - 1,
-                       S_cap).long()
-
-    def compact(v):
-        return torch.zeros((B, S_cap + 1), dtype=i32, device=dev) \
-            .scatter_(1, kdst, v)[:, :S_cap]
-
-    lit_start, lit_len, off_m, mlen_m = map(compact, (lit_start, lit_len,
-                                                      off_s, merged))
-    valid_m = k < n_m[:, None]
+    kidx = compact_indices(keep, S_cap, S_cap)
+    valid_m = kidx < S_cap
+    lit_start, lit_len, off_m, mlen_m = (
+        torch.where(valid_m, v, 0) for v in gather(
+            [(torch.where(keep, f, 0), 17)
+             for f in (lit_start, lit_len, off_s, merged)],
+            kidx.clamp(0, S_cap - 1)))
 
     # final literal-only record at slot n_m (the LASTLITERALS tail)
     tail_start = torch.where(valid_m, lit_start + lit_len + mlen_m, 0) \

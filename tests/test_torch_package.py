@@ -23,9 +23,10 @@ from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
-from lz4net_tpu_torch.ops import (emit_kernel, fused_gather,  # noqa: E402
-                                  hash_kernel, mlen_kernel, parse_kernel,
-                                  records_kernel, resolve_kernel, seq_kernel)
+from lz4net_tpu_torch.ops import (chain_kernel, emit_kernel,  # noqa: E402
+                                  fused_gather, hash_kernel, mlen_kernel,
+                                  parse_kernel, records_kernel,
+                                  resolve_kernel, seq_kernel)
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -33,7 +34,15 @@ DECODE_KERNELS = (parse_kernel, records_kernel, fused_gather, resolve_kernel)
 # the encode path's four kernels, and the gather it shares with decode
 ENCODE_KERNELS = (hash_kernel, mlen_kernel, seq_kernel, emit_kernel,
                   fused_gather)
-KERNELS = DECODE_KERNELS + ENCODE_KERNELS[:4] + (es, ds)
+KERNELS = DECODE_KERNELS + ENCODE_KERNELS[:4] + (es, ds, chain_kernel)
+
+
+def _counts():
+    """Every kernel's launch count (a module with several kernels keeps
+    one counter each)."""
+    return [m.launches for m in KERNELS] + [
+        hash_kernel.hc_launches, fused_gather.table_launches,
+        fused_gather.lane_launches, fused_gather.diag_launches]
 
 
 def _imported_modules(path):
@@ -48,7 +57,7 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "lz4net_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 16
+    assert len(files) >= 17
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -61,16 +70,15 @@ def test_every_kernel_has_its_source_and_entry():
     assert names == {"parse_kernel", "records_kernel", "fused_gather",
                      "resolve_kernel", "hash_kernel", "mlen_kernel",
                      "seq_kernel", "emit_kernel", "hc_kernel",
-                     "encode_sequencer", "decode_sequencer"}
+                     "encode_sequencer", "decode_sequencer", "chain_kernel"}
     assert set(_build.SIGNATURES) == {
         "lz4t_parse_tokens", "lz4t_records_to_state",
         "lz4t_rowbase_gather", "lz4t_resolve_wavefront",
         "lz4t_bucket_prev", "lz4t_match_lengths", "lz4t_sequence_records",
         "lz4t_emit_bytes", "lz4t_hc_tables", "lz4t_encode_sequencer",
-        "lz4t_decode_sequencer"}
-    for mod in KERNELS:
-        assert mod.launches >= 0
-    assert hash_kernel.hc_launches >= 0
+        "lz4t_decode_sequencer", "lz4t_mark_chain", "lz4t_table_gather",
+        "lz4t_lane_lookup", "lz4t_diag_gather"}
+    assert all(n >= 0 for n in _counts())
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -135,6 +143,14 @@ def test_wrappers_refuse_other_devices():
         es.encode_sequencer(meta8, lens, lens, 64)
     with pytest.raises(ValueError, match="device"):
         ds.decode_sequencer(meta8, lens, lens, 64)
+    with pytest.raises(ValueError, match="device"):
+        chain_kernel.mark_chain(meta, 4096)
+    with pytest.raises(ValueError, match="device"):
+        fused_gather.table_gather([meta], meta, (17,))
+    with pytest.raises(ValueError, match="device"):
+        fused_gather.lane_lookup(meta.reshape(32, 128), meta.reshape(32, 128))
+    with pytest.raises(ValueError, match="device"):
+        fused_gather.diag_gather(meta, meta, 1, 16)
 
 
 def test_corpus_matches_jax_apart_from_its_generated_source_part():
@@ -157,7 +173,7 @@ def test_corpus_matches_jax_apart_from_its_generated_source_part():
 
 
 def test_cpu_path_launches_no_kernel():
-    before = [m.launches for m in KERNELS] + [hash_kernel.hc_launches]
+    before = _counts()
     data = b"abcdefgh" * 500
     got = codec.decode_batch([reference.compress_block(data)], [len(data)],
                              device="cpu")
@@ -172,8 +188,16 @@ def test_cpu_path_launches_no_kernel():
     assert strict == reference.compress_block(data)
     assert ds.SequencerDecoder("cpu").decode_batch([strict], [len(data)]) \
         == [data]
-    assert [m.launches for m in KERNELS] + [hash_kernel.hc_launches] \
-        == before
+    x, dl, D = _x_on("cpu", [data])
+    _, O, S_cap = ev.batch_shapes(len(data))
+    out, out_len, _ = ev.encode_batch_chain(x, dl, D, O, S_cap)
+    assert out[0, :int(out_len[0])].to(torch.uint8).numpy().tobytes() \
+        == packed[0]
+    t = torch.zeros((2, 256), dtype=torch.int32)
+    chain_kernel.mark_chain(t + 1, 256)
+    fused_gather.lane_lookup(t.reshape(4, 128), t.reshape(4, 128))
+    fused_gather.diag_gather(t, t, 1, 16)
+    assert _counts() == before
 
 
 # ---- on the card --------------------------------------------------------
@@ -511,3 +535,74 @@ def test_decode_sequencer_matches_plain_version_on_the_card(cuda, blocks):
     assert dec.decode_batch(packed, out_lens.tolist()) == plain
     with pytest.raises(reference.CorruptedBlockError):
         dec.decode_batch([packed[0][:100]], [len(plain[0])])
+
+
+@pytest.mark.gpu
+def test_mark_chain_matches_plain_version_on_the_card(cuda, blocks):
+    """The chain graphs of the 512 KB corpus's match state, then junk:
+    g[i] = i + 1, steps past D and back, steps over 16 bits."""
+    plain, _ = blocks
+    x, dl, D = _x_on(cuda, plain)
+    _, matched, _, mlen = ev._match_stage(x, dl, D, ev.RCAP, 0, None)
+    g = seq_kernel.chain_graph(matched == 1, mlen, D)
+    rng = np.random.default_rng(4)
+    junk = torch.from_numpy(np.stack([
+        np.arange(1, D + 1),
+        np.where(np.arange(D) % 3, np.arange(D) + 70000, 5),
+        rng.integers(-5, D + 9, D)]).astype(np.int32)).to(cuda)
+    for graph in (g, junk):
+        before = chain_kernel.launches
+        got = chain_kernel.mark_chain(graph, D)
+        assert chain_kernel.launches == before + 1
+        _equal([got], [chain_kernel.mark_chain_reference(graph, D)])
+    assert int(got[0].sum()) == D
+
+
+@pytest.mark.gpu
+def test_gathers_match_plain_versions_on_the_card(cuda):
+    """table_gather with 1-4 tables and indices on every side of the
+    table, lane_lookup, and diag_gather in and out of its band."""
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+
+    B, N, K = 3, 8192, 3000
+    tables = [t(rng.integers(-2**31, 2**31, (B, N), np.int64))
+              for _ in range(4)]
+    idx = t(rng.integers(-1000, N + 1000, (B, K)))
+    for bits in ((17,), (17, 17), (32, 21, 8), (17, 17, 17, 17)):
+        before = fused_gather.table_launches
+        got = fused_gather.table_gather(tables[:len(bits)], idx, bits)
+        assert fused_gather.table_launches == before + 1
+        _equal(got, fused_gather.table_gather_reference(
+            tables[:len(bits)], idx, bits))
+    lt, li = t(rng.integers(-2**31, 2**31, (B, 40, 128), np.int64)), \
+        t(rng.integers(-500, 500, (B, 40, 128)))
+    _equal([fused_gather.lane_lookup(lt, li)],
+           [fused_gather.lane_lookup_reference(lt, li)])
+    q = np.arange(N)[None, :]
+    didx = t(q + rng.integers(-3 * 128, 18 * 128, (B, N)))
+    for back, w in ((1, 16), (0, 1), (4, 3)):
+        _equal(fused_gather.diag_gather(tables[0], didx, back, w),
+               fused_gather.diag_gather_reference(tables[0], didx, back, w))
+
+
+@pytest.mark.gpu
+def test_encode_batch_chain_on_the_card(cuda, blocks):
+    """The chain record path gives the sequence path's bytes, fast and at
+    HC level 9, with its kernels launched as often as the path says."""
+    plain, _ = blocks
+    x, dl, D = _x_on(cuda, plain)
+    _, O, S_cap = ev.batch_shapes(int(dl.max()))
+    for level, gathers in ((0, 7), (9, 19)):
+        rcap = ev.hc_rcap(level, D)
+        before = (chain_kernel.launches, fused_gather.table_launches,
+                  seq_kernel.launches)
+        got = ev.encode_batch_chain(x, dl, D, O, S_cap, rcap, level)
+        assert (chain_kernel.launches, fused_gather.table_launches,
+                seq_kernel.launches) == (before[0] + 1,
+                                         before[1] + gathers, before[2])
+        _equal(got, ev.encode_batch_vectorized(x, dl, D, O, S_cap, rcap,
+                                               level))
+        assert bool(got[2].all())

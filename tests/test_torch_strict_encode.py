@@ -102,3 +102,17 @@ def test_codec_encode_strict_matches_jax_codec():
     blocks = [data[:30000], data[30000:], CASES["rle"]]
     assert cuda_engine.compress_blocks(blocks, device="cpu") \
         == [_oracle(b) for b in blocks]
+
+
+def test_output_cap_of_8_mib_or_more():
+    """A cap past the kernel's widest row sizes the output by the
+    worst-case bound: the payload is the default cap's and the JAX
+    facade's, and a cap one byte short of it still gives b""."""
+    data = b"abcdefgh" * 1000
+    want = codec.encode(data, device="cpu")
+    assert len(want) == 49
+    assert codec.encode(data, 9_000_000, device="cpu") == want \
+        == jcodec.encode(data, 9_000_000)
+    assert codec.encode(data, len(want) - 1, device="cpu") == b""
+    assert es.SequencerEncoder("cpu").encode_batch(
+        [data, data], [9_000_000, len(want) - 1]) == [want, b""]
