@@ -32,7 +32,13 @@
    encoder on the 64 KB blocks and the sequencer decoder on their
    reference-compressed form, each against its plain version (a walk
    over CPU tensors, timed over one call; the encoder's rows up to each
-   payload's length, as the kernel leaves the rest undefined);
+   payload's length, as the kernel leaves the rest undefined); the
+   strict encoder also on corpus.strict_edge_rows (16 rows: runs, noise,
+   hash collisions inside probe windows, both table variants, budgets at
+   each output-limit check), on 8 blocks of 256 KB, which its
+   one-thread kernel for rows wider than shared memory takes, and on 4
+   blocks as wide as the widest row it stages in shared memory
+   (encode_sequencer.row_max) and 4 one byte wider;
 9. encodes the 256 blocks through
    lz4net_tpu_torch.models.cuda.compress_blocks (strict) and decodes the
    reference-compressed blocks through
@@ -47,8 +53,9 @@
 10. the fast-HC kernel phase at the encode path's shapes: hc_tables with
    the suffix tiers' three run tables and with the hash tiers' seven
    tables, match_lengths with 24 dominant offsets on a suffix tier's
-   candidates, and sequence_records with 8 catch-up rounds, each against
-   its plain version;
+   candidates (level 5's rcap) and on an exact sort tier's (level 9's
+   rcap), and sequence_records with 8 catch-up rounds, each against its
+   plain version;
 11. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
    tiers) through lz4net_tpu_torch.models.cuda.compress_blocks_hc_fast,
    and at level 5 with the hash tiers (hc_tiers="hash"); requires for
@@ -265,12 +272,14 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
                                  & (off > 4))
     m8 = torch.zeros_like(prev)
     margs = (x, u32, prev, m8, dks, dl, dl, D, ev.RCAP)
+    # x, prev and m8 read and three outputs written, 6 words a position
+    # (u32 is not read: the kernel takes the words from x's bytes)
     matched, off_all, mlen_all = kernel_row(
         "match_lengths", "lz4net_tpu_torch/csrc/mlen_kernel.cu",
         "lz4net_tpu/ops/mlen_kernel.py:409", mlen_kernel,
         lambda: mlen_kernel.match_lengths_fused(*margs),
         lambda: mlen_kernel.match_lengths_reference(*margs),
-        n_bytes=7 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
+        n_bytes=6 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
         n_ops=B * D * 40, plain_reps=3)
     sargs = (u32, matched, off_all, mlen_all, dl, pre, D, S_cap, 0,
              ev.CU_ROUNDS)
@@ -440,9 +449,28 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
         "lz4net_tpu/ops/mlen_kernel.py:409", mlen_kernel,
         lambda: mlen_kernel.match_lengths_fused(*margs),
         lambda: mlen_kernel.match_lengths_reference(*margs),
-        n_bytes=7 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
+        n_bytes=6 * B * D * i4 + B * dks.shape[1] * i4 + 2 * B * i4,
         n_ops=B * D * 40, plain_reps=3,
         variant=f"HC tier, K={dks.shape[1]}, rcap={rcap}")
+    # an exact sort tier of level 9 (the 12-byte previous occurrence, its
+    # first 8 bytes verified), as that path dispatches it 7 times a batch
+    prev4 = ev._prev_occurrence((u32,))
+    c12 = ev._prev_occurrence((u32, us4, ev._shift_left(u32, 8)))
+    ok12 = (c12 >= 0) & (i - c12 <= 65535)
+    prev9 = torch.where(ok12, c12, prev4)
+    off9 = i - prev9
+    dks9 = ev._top_offsets_select(off9, (prev9 >= 0) & (off9 <= 65535)
+                                  & (off9 > 4), ev.HC_TOP_OFFSETS,
+                                  ev.HC_SUB_STEP)
+    rcap9 = ev.hc_rcap(9, D)
+    margs9 = (x, u32, prev9, ok12.to(torch.int32), dks9, dl, dl, D, rcap9)
+    kernel_row(
+        "match_lengths", "", "", mlen_kernel,
+        lambda: mlen_kernel.match_lengths_fused(*margs9),
+        lambda: mlen_kernel.match_lengths_reference(*margs9),
+        n_bytes=6 * B * D * i4 + B * dks9.shape[1] * i4 + 2 * B * i4,
+        n_ops=B * D * 40, plain_reps=3,
+        variant=f"HC L9 sort tier, K={dks9.shape[1]}, rcap={rcap9}")
     sargs = (u32, *mlen, dl, pre, D, S_cap, 0, ev.HC_CU_ROUNDS)
     kernel_row(
         "sequence_records", "lz4net_tpu_torch/csrc/seq_kernel.cu",
@@ -773,6 +801,7 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     from lz4net_tpu_torch.models import reference
     from lz4net_tpu_torch.ops import decode_sequencer as ds
     from lz4net_tpu_torch.ops import encode_sequencer as es
+    from lz4net_tpu_torch.utils import corpus
 
     lens = [len(b) for b in blocks]
     n_data = sum(lens)
@@ -804,6 +833,40 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
         n_bytes=lambda got: (n_data + 2 * B * i4
                              + int(got[1].clamp(min=0).sum()) + B * i4),
         n_ops=10 * n_data, plain_reps=1, defined=payloads)
+    # the edge rows (corpus.strict_edge_rows: runs, noise, hash collisions
+    # inside probe windows, both table variants, the budgets at each
+    # output-limit check); 8 blocks of 256 KB, rows too wide for shared
+    # memory, which go to the one-thread kernel; 4 blocks as wide as the
+    # widest row staged in shared memory, then one byte wider
+    edge = corpus.strict_edge_rows(SEED)
+    wide = corpus.split_blocks(b"".join(blocks[:32]), 1 << 18)
+    limit = es.row_max("cuda")
+    at_limit = corpus.split_blocks(b"".join(blocks[:12]), limit)[:4]
+    over = corpus.split_blocks(b"".join(blocks[:12]), limit + 1)[:4]
+    for what, rows_in, caps in (
+            ("edge rows", [d for _, d, _ in edge],
+             [b if b is not None else maximum_output_length(len(d))
+              for _, d, b in edge]),
+            ("wide-row kernel, 256 KB rows", wide,
+             [maximum_output_length(len(d)) for d in wide]),
+            ("the widest staged rows", at_limit,
+             [maximum_output_length(len(d)) for d in at_limit]),
+            ("one byte wider, the wide-row kernel", over,
+             [maximum_output_length(len(d)) for d in over])):
+        vsrc, vlen = _uint8_rows(torch, rows_in)
+        vcap = torch.tensor(caps, dtype=torch.int32, device="cuda")
+        vO = int(vcap.max())
+        vargs = (vsrc.cpu(), vlen.cpu(), vcap.cpu(), vO)
+        n_in = sum(map(len, rows_in))
+        kernel_row(
+            "encode_sequencer", "", "", es,
+            lambda: es.encode_sequencer(vsrc, vlen, vcap, vO),
+            lambda: _on_card(es.encode_sequencer_reference(*vargs)),
+            n_bytes=lambda got: (n_in + 2 * len(rows_in) * i4
+                                 + int(got[1].clamp(min=0).sum())
+                                 + len(rows_in) * i4),
+            n_ops=10 * n_in, plain_reps=1, defined=payloads,
+            variant=f"{what}, B={len(rows_in)}, S={vsrc.shape[1]}")
     comp, comp_len = _uint8_rows(torch, packed)
     out_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     D = max(lens)

@@ -40,6 +40,7 @@ SIGNATURES = {
     "lz4t_emit_bytes": [_P] * 8 + [_I, _I, _I, _P],
     "lz4t_hc_tables": [_P] * 4 + [_I] * 3 + [_P],
     "lz4t_encode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
+    "lz4t_encode_sequencer_row_max": [_P, _P],
     "lz4t_decode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
     "lz4t_mark_chain": [_P] * 2 + [_I] * 2 + [_P],
     "lz4t_table_gather": [_P] * 9 + [_I] * 8 + [_P],

@@ -4,7 +4,10 @@ per CTA.
 Port of the TPU kernel ``lz4net_tpu/ops/encode_pallas.py``
 (``build_encode_call``, ``_encode_kernel`` :51), the JAX package's
 "sequencer" encoder and the default encode of its facade.  The CUDA
-kernel is ``csrc/encode_sequencer.cu`` (its header says what bounds it on
+kernel is ``csrc/encode_sequencer.cu``: rows that fit the device's
+shared memory (``row_max``: 183,232 bytes on the H100) are staged there
+and parsed by one warp, wider rows by one thread from device memory,
+chosen by the row width in one launch (its header says what bounds it on
 the H100 and what the design does about that);
 ``encode_sequencer_reference`` is its plain version, used for CPU tensors
 and as the kernel's yardstick on the card.
@@ -17,6 +20,8 @@ keeps both of its hash variants (8192 entries below ``LZ4_64KLIMIT``,
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -40,6 +45,15 @@ def _check(src, src_len, dst_maxlen, O):
             raise ValueError(f"{name} must be [B] int32 on src's device")
     if not 0 < O < MAX_COLS or src.shape[1] >= MAX_COLS:
         raise ValueError(f"S and O must be below {MAX_COLS}, O positive")
+
+
+def row_max(device="cuda") -> int:
+    """The widest row (S) that the kernel stages in shared memory on
+    ``device``, a CUDA device; wider rows go to its one-thread kernel."""
+    n = ctypes.c_int(0)
+    _build.launch("lz4t_encode_sequencer_row_max", torch.device(device),
+                  ctypes.addressof(n))
+    return n.value
 
 
 def encode_sequencer(src, src_len, dst_maxlen, O: int):

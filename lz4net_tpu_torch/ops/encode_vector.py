@@ -63,6 +63,7 @@ from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
                           hc_candidates)
 from .hash_kernel import shift_left as _shift_left
 from .mlen_kernel import match_lengths_fused, run_lengths
+from .mlen_kernel import words as _u32
 from .seq_kernel import parse_records, sequence_records
 
 LANE = 128
@@ -74,15 +75,6 @@ CU_ROUNDS = 2        # catch-up rounds of the fast mode
 HC_CU_ROUNDS = 8     # and of HC
 RCAP = 4096          # far matches extended past 8 bytes, per block (fast)
 HC_TIERS = ("suffix", "hash", "sort")
-
-
-def _u32(x):
-    """u32[i] = little-endian 4-byte word at i (zero-padded tail), as
-    int32 (computed in int64, so the top byte's shift cannot overflow)."""
-    x = x.long()
-    w = x | (_shift_left(x, 1) << 8) | (_shift_left(x, 2) << 16) \
-        | (_shift_left(x, 3) << 24)
-    return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def _top_offsets_select(off, far, top_offsets=TOP_OFFSETS,

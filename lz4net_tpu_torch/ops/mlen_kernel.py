@@ -6,6 +6,11 @@ header says what bounds it on the H100 and what the design does about
 that); ``match_lengths_reference`` is its plain PyTorch version, a port
 of ``encode_vector._match_lengths`` and ``_top_off_exact`` there.
 
+``u32`` stays in the signature of the JAX kernel, where it is the words
+of ``x`` (``words(x)``, zero past the row), as every caller passes it;
+neither version reads it: the kernel assembles the words from x's bytes
+in shared memory, and the plain version computes them from x.
+
 For position i with candidate ``prev[i]`` (``prev[i] < i``, or -1) and
 offset ``off = i - prev``, matched where ``prev >= 0`` and
 ``off <= 65535``:
@@ -32,10 +37,12 @@ import torch
 from .. import _build
 from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
                          MINMATCH)
+from .hash_kernel import shift_left
 
 TILE = 4096          # the kernel's scan tile; D must be a multiple
 MAX_D = 13 * 8192    # 96 KB blocks; the kernel keeps 2 bytes a position
-                     # in shared memory
+                     # and at least one class's break bitmask in shared
+                     # memory
 MAX_TOP = 24         # at most this many dominant offsets (HC tiers: 24)
 
 launches = 0
@@ -56,6 +63,10 @@ def _check(x, u32, prev, m8, dks, end_abs, blk_len, D):
         raise ValueError("end_abs and blk_len must be [B]")
 
 
+def _aligned(t):
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def match_lengths_fused(x, u32, prev, m8, dks, end_abs, blk_len, D: int,
                         rcap: int, ext_rounds: int = 10):
     """x/u32/prev/m8: [B, D] int32; dks: [B, K] int32 (0 = unused);
@@ -67,15 +78,28 @@ def match_lengths_fused(x, u32, prev, m8, dks, end_abs, blk_len, D: int,
                                        blk_len, D, rcap, ext_rounds)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    ins = [t.contiguous() for t in (x, u32, prev, m8, dks, end_abs,
-                                    blk_len)]
-    matched, off, mlen = (torch.empty_like(ins[0]) for _ in range(3))
-    _build.launch("lz4t_match_lengths", x.device,
-                  *(t.data_ptr() for t in ins), matched.data_ptr(),
-                  off.data_ptr(), mlen.data_ptr(), x.shape[0], D,
-                  dks.shape[1], rcap, ext_rounds)
+    # 16-byte aligned rows: the kernel reads x, prev and m8 as int4
+    x, prev, m8, dks, end_abs, blk_len = (
+        _aligned(t.contiguous()) for t in (x, prev, m8, dks, end_abs,
+                                           blk_len))
+    matched, off, mlen = (torch.empty_like(x) for _ in range(3))
+    _build.launch("lz4t_match_lengths", x.device, x.data_ptr(),
+                  u32.data_ptr(), prev.data_ptr(), m8.data_ptr(),
+                  dks.data_ptr(), end_abs.data_ptr(), blk_len.data_ptr(),
+                  matched.data_ptr(), off.data_ptr(), mlen.data_ptr(),
+                  x.shape[0], D, dks.shape[1], rcap, ext_rounds)
     launches += 1
     return matched, off, mlen
+
+
+def words(x):
+    """words[i] = little-endian 4-byte word of x's bytes at i (zero past
+    the row), as int32 (computed in int64, so the top byte's shift cannot
+    overflow)."""
+    x = x.long()
+    w = x | (shift_left(x, 1) << 8) | (shift_left(x, 2) << 16) \
+        | (shift_left(x, 3) << 24)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def xor_match_bytes(wa, wb):
@@ -108,6 +132,7 @@ def _run_at_offset(x, i, d):
 def match_lengths_reference(x, u32, prev, m8, dks, end_abs, blk_len,
                             D: int, rcap: int, ext_rounds: int = 10):
     """Plain PyTorch version of ``match_lengths_fused`` (same outputs)."""
+    u32 = words(x)      # as the kernel takes them; the argument is unread
     B = x.shape[0]
     i = torch.arange(D, dtype=torch.int32, device=x.device).expand(B, D)
     off = i - prev

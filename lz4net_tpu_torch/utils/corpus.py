@@ -198,3 +198,55 @@ def silesia_like(total_size: int = 16 << 20, seed: int = 0) -> bytes:
 def split_blocks(data: bytes, block_size: int) -> list[bytes]:
     """Split a buffer into independent codec blocks."""
     return [data[i:i + block_size] for i in range(0, len(data), block_size)]
+
+
+def strict_edge_rows(seed: int = 0) -> list:
+    """Blocks and budgets that drive the strict encoder's edge cases:
+    [(name, block, budget)], budget None for the worst-case bound.
+
+    * a 64 KB run of zeros (one match to the end) and 64 KB of random
+      bytes (no match; the skip step grows past 1);
+    * distinct 4-byte words that all land in one slot of both hash
+      tables (the multiplier is odd, so each slot's words are
+      ``(slot << 19 | r) * inverse``): collisions inside every probe
+      window with no match, then with matches, then in the large table;
+    * blocks of 12, 13, ``LZ4_64KLIMIT - 1`` and ``LZ4_64KLIMIT`` bytes;
+    * budgets at each of the three output-limit checks (the check fails,
+      then the budget one byte larger): 999 random bytes and a 1 before
+      3000 zeros (1006 literals, then one match) stop at the literal-run
+      check and then at the match-length check, 64 KB of zeros at the
+      match-length check and then at the last literals, 4096 random
+      bytes (no match) at the last literals, then fit; and a block one
+      byte over budget.
+    """
+    from ..constants import LZ4_64KLIMIT
+    from ..models.reference import compress_block
+
+    rng = random.Random(seed)
+    inverse = pow(2654435761, -1, 1 << 32)
+    same = b"".join((((5 << 19) | r) * inverse % (1 << 32)).to_bytes(
+        4, "little") for r in rng.sample(range(1 << 19), 4096))
+    text = silesia_like(LZ4_64KLIMIT, seed)
+    zeros = bytes(65536)
+    lits = rng.randbytes(999) + b"\x01" + bytes(3000)
+    noise = rng.randbytes(4096)
+    full = len(compress_block(noise))
+    block = silesia_like(65536, seed + 1)
+    return [
+        ("zeros", zeros, None),
+        ("random", rng.randbytes(65536), None),
+        ("collide", same, None),
+        ("collide_repeat", same[:8192] * 4, None),
+        ("collide_large", (same * 5)[:LZ4_64KLIMIT + 5000], None),
+        ("len_12", text[:12], None),
+        ("len_13", text[:13], None),
+        ("len_64klimit_m1", text[:LZ4_64KLIMIT - 1], None),
+        ("len_64klimit", text, None),
+        ("literals_check", lits, 1017),
+        ("literals_check_passed", lits, 1018),
+        ("match_check", zeros, 264),
+        ("match_check_passed", zeros, 265),
+        ("last_literals_check", noise, full - 1),
+        ("last_literals_fit", noise, full),
+        ("one_below", block, len(compress_block(block)) - 1),
+    ]

@@ -76,8 +76,9 @@ def test_every_kernel_has_its_source_and_entry():
         "lz4t_rowbase_gather", "lz4t_resolve_wavefront",
         "lz4t_bucket_prev", "lz4t_match_lengths", "lz4t_sequence_records",
         "lz4t_emit_bytes", "lz4t_hc_tables", "lz4t_encode_sequencer",
-        "lz4t_decode_sequencer", "lz4t_mark_chain", "lz4t_table_gather",
-        "lz4t_lane_lookup", "lz4t_diag_gather"}
+        "lz4t_encode_sequencer_row_max", "lz4t_decode_sequencer",
+        "lz4t_mark_chain", "lz4t_table_gather", "lz4t_lane_lookup",
+        "lz4t_diag_gather"}
     assert all(n >= 0 for n in _counts())
 
 
