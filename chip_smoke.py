@@ -9,7 +9,9 @@
    the same inputs, at the shapes of the decode path below, requires
    every int output to be equal, and times both (CUDA events around 10
    back-to-back calls, median of 5; rowbase_gather also beside
-   torch.gather, which the port never calls);
+   torch.gather, which the port never calls); parse_tokens also on
+   corpus.parse_edge_rows (tokens, 0xFF runs, comp_len and chain jumps
+   across multiples of 32, 1024 and 4096, and junk);
 4. decodes a 16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB,
    compressed by the port's reference compressor, through
    lz4net_tpu_torch.codec.decode_batch on the card; requires every block
@@ -38,7 +40,11 @@
    each output-limit check), on 8 blocks of 256 KB, which its
    one-thread kernel for rows wider than shared memory takes, and on 4
    blocks as wide as the widest row it stages in shared memory
-   (encode_sequencer.row_max) and 4 one byte wider;
+   (encode_sequencer.row_max) and 4 one byte wider; the sequencer
+   decoder also on corpus.decode_edge_rows (at their D and one byte
+   short of it) and on 4 rows as wide as the widest output row it
+   decodes in shared memory (decode_sequencer.row_max) and 4 one byte
+   wider;
 9. encodes the 256 blocks through
    lz4net_tpu_torch.models.cuda.compress_blocks (strict) and decodes the
    reference-compressed blocks through
@@ -70,7 +76,8 @@
 12. the chain record path's kernels at the fast path's shapes:
    mark_chain on the parse chain of the 256 blocks' match state, and
    table_gather on the offsets and lengths at the tokens and on the
-   catch-up words, each beside torch.gather; lane_lookup and diag_gather
+   catch-up words, each beside torch.gather (the catch-up words again 20
+   times in turns with torch.gather); lane_lookup and diag_gather
    at tools/probe_fused.py's shapes with B=256, each against its plain
    version and beside torch.gather;
 13. the probe phase: lane_lookup and diag_gather through their entry
@@ -636,6 +643,23 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         n_bytes=B * S_cap * i4 * 3, n_ops=B * S_cap * 6,
         library=lambda: torch.gather(u32, 1, pa64),
         variant="catch-up words, 1 table of 32 bits")
+    # the one-table shape against torch.gather again, in turns, 20 medians
+    # each: is the kernel slower by more than the spread?
+    k_ms, l_ms = [], []
+    for _ in range(20):
+        k_ms.append(time_ms(torch, lambda: fused_gather.table_gather(
+            [u32], pa, (32,))))
+        l_ms.append(time_ms(torch, lambda: torch.gather(u32, 1, pa64)))
+    retime = {"reps": 20, "ms": statistics.median(k_ms),
+              "ms_range": [min(k_ms), max(k_ms)],
+              "library_ms": statistics.median(l_ms),
+              "library_range": [min(l_ms), max(l_ms)]}
+    next(r for r in rows if r["name"] == "table_gather")[
+        "variants"]["catch-up words, 1 table of 32 bits, re-timed"] = retime
+    print(f"kernel table_gather (1 table, re-timed in turns, 20 medians): "
+          f"{retime['ms']:.4f} ms (range {min(k_ms):.4f}-{max(k_ms):.4f}) "
+          f"against torch.gather {retime['library_ms']:.4f} ms (range "
+          f"{min(l_ms):.4f}-{max(l_ms):.4f}); {card}")
 
     # lane_lookup and diag_gather at tools/probe_fused.py's shapes, B=256
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -880,6 +904,34 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
         lambda: _on_card(ds.decode_sequencer_reference(*cpu_args)),
         n_bytes=n_comp + 2 * B * i4 + B * D + 2 * B * i4,
         n_ops=4 * B * D, plain_reps=1)
+    # the edge rows (corpus.decode_edge_rows), at their D and one byte
+    # short of it (the longest row faults by a write past D); then 4 rows
+    # of the corpus as wide as the widest output row the kernel decodes
+    # in shared memory (decode_sequencer.row_max), and one byte wider
+    # (its one-warp kernel), compressed by the strict encoder
+    edge = corpus.decode_edge_rows(SEED)
+    limit = ds.row_max("cuda")
+    variants = [(f"edge rows, D={D_e}", [b for _, b, _ in edge],
+                 [n for *_, n in edge], D_e)
+                for D_e in (max(n for *_, n in edge),
+                            max(n for *_, n in edge) - 1)]
+    for width, what in ((limit, "the widest shared-memory rows"),
+                        (limit + 1, "one byte wider, the one-warp kernel")):
+        datas = corpus.split_blocks(b"".join(blocks[:16]), width)[:4]
+        variants.append((f"{what}, B=4, D={width}",
+                         cuda_engine.compress_blocks(datas, device="cuda"),
+                         [len(d) for d in datas], width))
+    for what, vblocks, vlens, vD in variants:
+        vcomp, vcl = _uint8_rows(torch, vblocks)
+        vol = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+        vargs = (vcomp.cpu(), vcl.cpu(), vol.cpu(), vD)
+        kernel_row(
+            "decode_sequencer", "", "", ds,
+            lambda: ds.decode_sequencer(vcomp, vcl, vol, vD),
+            lambda: _on_card(ds.decode_sequencer_reference(*vargs)),
+            n_bytes=int(vcl.sum()) + 4 * len(vblocks) * i4
+            + len(vblocks) * vD, n_ops=4 * len(vblocks) * vD,
+            plain_reps=1, variant=what)
 
     by_path = {}
 
@@ -1087,6 +1139,19 @@ def main() -> int:
         lambda: parse_kernel.parse_tokens_reference(comp, comp_len, C),
         n_bytes=n_comp * i4 + B * C * i4 * 3 + B * i4 + B,
         n_ops=B * C * 30)
+    # the edge rows (corpus.parse_edge_rows: decode_edge_rows packed, and
+    # junk rows with 0xFF runs across tiles and comp_len at and below C)
+    ecomp, ecl, eC = corpus.parse_edge_rows(SEED)
+    ecomp, ecl = torch.from_numpy(ecomp).to("cuda"), torch.from_numpy(
+        ecl).to("cuda")
+    kernel_row(
+        "parse_tokens", "", "", parse_kernel,
+        lambda: parse_kernel.parse_tokens(ecomp, ecl, eC),
+        lambda: parse_kernel.parse_tokens_reference(ecomp, ecl, eC),
+        n_bytes=int(ecl.clamp(0, eC).sum()) * i4 + ecomp.numel() * i4 * 3
+        + ecomp.shape[0] * (i4 + 1),
+        n_ops=ecomp.numel() * 30,
+        variant=f"edge rows, B={ecomp.shape[0]}, C={eC}")
     n_tok = int(mark.sum())
     t0m, cidx, _stats = kernel_row(
         "records_to_state", "lz4net_tpu_torch/csrc/records_kernel.cu",

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, the stream last (csrc/*.cu)
 SIGNATURES = {
-    "lz4t_parse_tokens": [_P] * 8 + [_I, _I, _P],
+    "lz4t_parse_tokens": [_P] * 6 + [_I, _I, _P],
     "lz4t_records_to_state": [_P] * 11 + [_I, _I, _I, _I, _P],
     "lz4t_rowbase_gather": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_resolve_wavefront": [_P] * 3 + [_I, _I, _I, _P],
@@ -42,6 +42,7 @@ SIGNATURES = {
     "lz4t_encode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
     "lz4t_encode_sequencer_row_max": [_P, _P],
     "lz4t_decode_sequencer": [_P] * 5 + [_I] * 3 + [_P],
+    "lz4t_decode_sequencer_row_max": [_P, _P],
     "lz4t_mark_chain": [_P] * 2 + [_I] * 2 + [_P],
     "lz4t_table_gather": [_P] * 9 + [_I] * 8 + [_P],
     "lz4t_lane_lookup": [_P] * 3 + [_I, _P],

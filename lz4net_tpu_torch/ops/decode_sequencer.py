@@ -3,8 +3,13 @@
 Port of the TPU kernel ``lz4net_tpu/ops/decode_pallas.py``
 (``build_decode_call``, ``_decode_kernel`` :167), which walks each block's
 tokens and reports ``(bytes read, bytes written)`` for the host to check.
-The CUDA kernel is ``csrc/decode_sequencer.cu`` (its header says what
-bounds it on the H100 and what the design does about that);
+The CUDA kernel is ``csrc/decode_sequencer.cu``: output rows up to
+``row_max`` bytes (167,072 on the H100) are decoded in shared memory, the
+tokens found by segment exits as ``parse_tokens`` finds them and their
+copies made a token a lane; wider rows (or compressed rows past LZ4's
+worst case for them) by one warp in device memory, chosen by the row
+widths in one launch (its header says what bounds it on the H100 and what
+the design does about that);
 ``decode_sequencer_reference`` is its plain version, used for CPU tensors
 and as the kernel's yardstick on the card.
 
@@ -31,6 +36,8 @@ accepts, with the same bytes.  Rows are zero past the bytes written.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -53,6 +60,17 @@ def _check(comp, comp_len, out_len, D):
             raise ValueError(f"{name} must be [B] int32 on comp's device")
     if not 0 < D < MAX_COLS or comp.shape[1] >= MAX_COLS:
         raise ValueError(f"C and D must be below {MAX_COLS}, D positive")
+
+
+def row_max(device="cuda") -> int:
+    """The widest output row (D) that the kernel decodes in shared memory
+    on ``device``, a CUDA device, with a compressed row (C) up to LZ4's
+    worst case for it, ``D + D // 255 + 16``; wider rows go to its one-warp
+    kernel."""
+    n = ctypes.c_int(0)
+    _build.launch("lz4t_decode_sequencer_row_max", torch.device(device),
+                  ctypes.addressof(n))
+    return n.value
 
 
 def decode_sequencer(comp, comp_len, out_len, D: int):

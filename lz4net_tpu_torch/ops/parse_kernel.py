@@ -20,7 +20,7 @@ import torch
 
 from .. import _build
 
-TILE = 4096          # the kernel's scan tile; C must be a multiple
+TILE = 4096          # C must be a multiple (the kernel takes 1024)
 M17 = (1 << 17) - 1
 BIG = 1 << 30
 
@@ -49,10 +49,9 @@ def parse_tokens(comp, comp_len, C: int):
     B = comp.shape[0]
     mark, lit_len, mlen = (torch.empty_like(comp) for _ in range(3))
     miss = torch.empty(B, dtype=torch.bool, device=comp.device)
-    ext, g = torch.empty_like(comp), torch.empty_like(comp)
     _build.launch("lz4t_parse_tokens", comp.device, comp.data_ptr(),
-                  comp_len.data_ptr(), mark.data_ptr(), lit_len.data_ptr(), mlen.data_ptr(),
-                  miss.data_ptr(), ext.data_ptr(), g.data_ptr(), B, C)
+                  comp_len.data_ptr(), mark.data_ptr(), lit_len.data_ptr(),
+                  mlen.data_ptr(), miss.data_ptr(), B, C)
     launches += 1
     return mark, lit_len, mlen, miss
 

@@ -250,3 +250,155 @@ def strict_edge_rows(seed: int = 0) -> list:
         ("last_literals_fit", noise, full),
         ("one_below", block, len(compress_block(block)) - 1),
     ]
+
+
+def _lz4_length(n: int) -> bytes:
+    """The 255-extension bytes of a length nibble of 15 (n = length - 15)."""
+    return b"\xff" * (n // 255) + bytes([n % 255])
+
+
+def _lz4_sequences(seqs, last: bytes) -> bytes:
+    """An LZ4 block from ``seqs`` [(literals, offset, match length)], each
+    match at least 4 bytes, then the literal run ``last``."""
+    out = bytearray()
+    for lits, offset, mlen in seqs:
+        L, M = len(lits), mlen - 4
+        out.append(min(L, 15) << 4 | min(M, 15))
+        if L >= 15:
+            out += _lz4_length(L - 15)
+        out += lits + offset.to_bytes(2, "little")
+        if M >= 15:
+            out += _lz4_length(M - 15)
+    out.append(min(len(last), 15) << 4)
+    if len(last) >= 15:
+        out += _lz4_length(len(last) - 15)
+    return bytes(out + last)
+
+
+def decode_edge_rows(seed: int = 0) -> list:
+    """Compressed blocks that drive the decode kernels' edge cases:
+    [(name, block, out_len)].  The first rows are well-formed (out_len is
+    the decoded length), the rows named ``junk_*`` break one fault rule
+    of ``ops.decode_sequencer`` each.
+
+    * matches at every offset from 1 to 33 and at offsets equal to dp
+      (the whole output so far);
+    * a match of 20,000 bytes after a 4050-byte literal run, so its 78
+      0xFF length bytes straddle compressed offsets 4096 and 4128;
+    * literal runs of 3000, 3000 and 1900 bytes, the second across
+      compressed offset 4096 (short matches between them);
+    * literal-only blocks whose lengths are 1023, 1024, 1025, 4095, 4096
+      and 4097 bytes, so comp_len sits on and beside multiples of 32,
+      1024 and 4096;
+    * an 11 KB text block (tokens and chain jumps everywhere).
+
+    The long match's row has the longest output, so its out_len is the
+    batch's D.  Every block is below 8 KB, so the decode path packs the
+    rows at C = 8192.
+    * junk: a truncated block (a read at comp_len); a length extension
+      that runs off the end; a literal run that would end past out_len
+      but not at it; a match ending inside the last five bytes; offsets
+      0 and dp + 1.  (A write past D needs out_len > D: callers pass a D
+      one byte short of the longest row for it.)
+    """
+    from ..models.reference import compress_block
+
+    rng = random.Random(seed)
+
+    def rand(n):
+        return rng.randbytes(n)
+
+    tail = rand(16)
+    offsets = [(rand(1 + k % 3), k, 4 + (7 * k) % 40) for k in range(1, 34)]
+    rows = [
+        ("offsets_1_to_33", _lz4_sequences([(rand(64), 64, 4)] + offsets,
+                                          tail)),
+        ("offset_equals_dp", _lz4_sequences(
+            [(rand(37), 37, 100), (rand(5), 142, 60)], tail)),
+        ("long_match", _lz4_sequences([(rand(4050), 4050, 20000),
+                                      (rand(3), 7, 19)], tail)),
+        ("literals_across_4k", _lz4_sequences(
+            [(rand(3000), 100, 8), (rand(3000), 3000, 12),
+             (rand(1900), 7, 9)], tail)),
+    ]
+    for target in (1023, 1024, 1025, 4095, 4096, 4097):
+        n = next(n for n in range(target, 0, -1)
+                 if len(_lz4_sequences([], bytes(n))) == target)
+        rows.append((f"literals_only_{target}",
+                     _lz4_sequences([], rand(n))))
+    rows.append(("text_11k", compress_block(silesia_like(11 * 1024,
+                                                          seed + 7))))
+
+    out = [(name, blk, len(_decoded(blk))) for name, blk in rows]
+    lits = rand(40)
+    out += [
+        ("junk_truncated", out[-1][1][:len(out[-1][1]) // 2], out[-1][2]),
+        ("junk_ext_past_end", b"\xf0" + b"\xff" * 50, 1000),
+        ("junk_literals_past_end",
+         _lz4_sequences([], lits), 36),          # ends at 40, not at 36
+        ("junk_match_in_last_five",
+         _lz4_sequences([(lits, 40, 10)], b"abc"), 53),
+        ("junk_offset_0", _lz4_sequences([(lits, 0, 10)], tail), 66),
+        ("junk_offset_past_dp", _lz4_sequences([(lits, 41, 10)], tail), 66),
+    ]
+    return out
+
+
+def _decoded(block: bytes) -> bytes:
+    """The bytes a well-formed block decodes to, by a plain token walk
+    with no end-of-block rules (for sizing the edge rows)."""
+    dst = bytearray()
+    sp = 0
+    while True:
+        token = block[sp]
+        sp += 1
+        lit = token >> 4
+        if lit == 15:
+            while True:
+                v = block[sp]
+                sp += 1
+                lit += v
+                if v != 255:
+                    break
+        dst += block[sp:sp + lit]
+        sp += lit
+        if sp >= len(block):
+            return bytes(dst)
+        offset = block[sp] | block[sp + 1] << 8
+        sp += 2
+        mlen = token & 15
+        if mlen == 15:
+            while True:
+                v = block[sp]
+                sp += 1
+                mlen += v
+                if v != 255:
+                    break
+        for _ in range(mlen + 4):
+            dst.append(dst[-offset])
+
+
+def parse_edge_rows(seed: int = 0):
+    """``decode_edge_rows`` packed as the decode path packs them (C the
+    next multiple of 4096 above the longest block), then six junk rows
+    of the same width: seeded random bytes with 0xFF runs across the
+    parse kernel's 1024-position tiles, at a 4096 boundary and at the
+    row's end, and an all-0xFF row, with comp_len C, C - 1, 4096, 4095, 1
+    and 0.  Returns (comp [B, C] int32, comp_len [B] int32, C) as numpy
+    arrays."""
+    import numpy as np
+
+    blocks = [b for _, b, _ in decode_edge_rows(seed)]
+    C = -(-(max(map(len, blocks)) + 1) // 4096) * 4096
+    comp = np.zeros((len(blocks) + 6, C), np.int32)
+    for i, b in enumerate(blocks):
+        comp[i, :len(b)] = np.frombuffer(b, np.uint8)
+    junk = np.random.default_rng(seed).integers(0, 256, (6, C), np.int32)
+    junk[0, 1000:3100] = 255
+    junk[1, :] = 255
+    junk[2, C - 600:] = 255
+    junk[3, 4090:4100] = 255
+    comp[len(blocks):] = junk
+    comp_len = np.array([len(b) for b in blocks]
+                        + [C, C - 1, 4096, 4095, 1, 0], np.int32)
+    return comp, comp_len, C

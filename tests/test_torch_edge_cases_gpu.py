@@ -9,7 +9,10 @@ and at D = 106496.  ``encode_sequencer``: the rows and budgets of
 ``corpus.strict_edge_rows`` on both of its kernels (rows staged in shared
 memory, and the same rows padded to 256 KB for the one-thread kernel),
 and rows at the widest width staged in shared memory (``row_max``) and
-one byte wider.
+one byte wider.  ``parse_tokens`` and ``decode_sequencer``: the rows of
+``corpus.decode_edge_rows`` (for ``parse_tokens`` packed with seeded junk
+rows, ``corpus.parse_edge_rows``), and
+``decode_sequencer`` on output rows at its ``row_max`` and one byte wider.
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -25,9 +28,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lz4net_tpu_torch.models import reference  # noqa: E402
+from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.ops import mlen_kernel  # noqa: E402
+from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 # (K, sub_step, D, rcap): the fast path's 8 offsets, the HC tiers' 24,
@@ -199,3 +205,71 @@ def test_encode_sequencer_at_the_staged_row_limit(cuda, extra):
     for (name, _, _), g, w, n in zip(rows, out.cpu(), want,
                                      want_written.tolist()):
         assert torch.equal(g[:n], w[:n]), name
+
+
+@pytest.mark.gpu
+def test_parse_tokens_edge_rows_on_the_card(cuda):
+    comp, comp_len, C = corpus.parse_edge_rows(0)
+    comp, comp_len = torch.from_numpy(comp), torch.from_numpy(comp_len)
+    before = parse_kernel.launches
+    got = parse_kernel.parse_tokens(comp.to(cuda), comp_len.to(cuda), C)
+    assert parse_kernel.launches == before + 1
+    _equal(got, parse_kernel.parse_tokens_reference(comp, comp_len, C))
+
+
+def _decode_batch(rows):
+    blocks = [b for _, b, _ in rows]
+    comp = np.zeros((len(blocks), max(map(len, blocks))), np.uint8)
+    for i, b in enumerate(blocks):
+        comp[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return (torch.from_numpy(comp),
+            torch.tensor([len(b) for b in blocks], dtype=torch.int32),
+            torch.tensor([n for *_, n in rows], dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("short", [0, 1])
+def test_decode_sequencer_edge_rows_on_the_card(cuda, short):
+    """Every row of ``corpus.decode_edge_rows``; with D one byte short of
+    the longest row, that row faults by a write past D."""
+    rows = corpus.decode_edge_rows(0)
+    comp, comp_len, out_len = _decode_batch(rows)
+    D = int(out_len.max()) - short
+    before = ds.launches
+    got = ds.decode_sequencer(comp.to(cuda), comp_len.to(cuda),
+                              out_len.to(cuda), D)
+    assert ds.launches == before + 1
+    want = ds.decode_sequencer_reference(comp, comp_len, out_len, D)
+    _equal(got, want)
+    faults = [r[0] for r, s in zip(rows, want[1].tolist()) if s[0] < 0]
+    assert faults == [r[0] for r in rows if r[0].startswith("junk_")
+                      or (short and r[2] > D)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+def test_decode_sequencer_at_the_staged_row_limit(cuda, extra):
+    """Output rows as wide as the widest the shared-memory kernel takes on
+    this card, then one byte wider (the one-warp kernel): text, zeros and
+    noise blocks of that length, a truncated block and a short one, at D
+    and at D - 5 (where the full rows fault by a write past D)."""
+    limit = ds.row_max(cuda)
+    assert limit >= 128 * 1024
+    width = limit + extra
+    rng = np.random.default_rng(7)
+    datas = [corpus.silesia_like(width, 5), bytes(width),
+             rng.integers(0, 256, width, np.uint8).tobytes()]
+    rows = [(str(i), reference.compress_block(d), width)
+            for i, d in enumerate(datas)]
+    rows += [("truncated", rows[0][1][:len(rows[0][1]) // 2], width),
+             ("short", reference.compress_block(datas[0][:3000]), 3000)]
+    comp, comp_len, out_len = _decode_batch(rows)
+    for D in (width, width - 5):
+        before = ds.launches
+        got = ds.decode_sequencer(comp.to(cuda), comp_len.to(cuda),
+                                  out_len.to(cuda), D)
+        assert ds.launches == before + 1
+        want = ds.decode_sequencer_reference(comp, comp_len, out_len, D)
+        _equal(got, want)
+        ok = want[1][:, 0] >= 0
+        assert ok.tolist() == [D == width] * 3 + [False, True]
