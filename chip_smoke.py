@@ -19,7 +19,11 @@
    to have launched; prints ms per batch and GB/s of decoded output;
 5. requires a truncated block to raise CorruptedBlockError;
 6. the same for the four fast-encode kernels at the shapes of the encode
-   path (the three slowest plain versions timed over single calls);
+   path (the three slowest plain versions timed over single calls), with
+   bucket_prev's time split between its two CUDA kernels
+   (torch.profiler); bucket_prev also on corpus.bucket_edge_rows and
+   sequence_records on corpus.seq_edge_rows, each at D = 4096 and at the
+   widest block, D = 106496;
 7. encodes the same 256 blocks through
    lz4net_tpu_torch.models.cuda.compress_blocks_fast on the card;
    requires no host encode, every encode kernel and rowbase_gather to
@@ -60,8 +64,9 @@
    the suffix tiers' three run tables and with the hash tiers' seven
    tables, match_lengths with 24 dominant offsets on a suffix tier's
    candidates (level 5's rcap) and on an exact sort tier's (level 9's
-   rcap), and sequence_records with 8 catch-up rounds, each against its
-   plain version;
+   rcap), and sequence_records with 8 catch-up rounds, on that tier's
+   matches and on the whole match state of the level-9, level-5 and
+   hash-tier paths, each against its plain version;
 11. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
    tiers) through lz4net_tpu_torch.models.cuda.compress_blocks_hc_fast,
    and at level 5 with the hash tiers (hc_tiers="hash"); requires for
@@ -245,6 +250,7 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
     from lz4net_tpu_torch.ops import encode_vector as ev
     from lz4net_tpu_torch.ops import (emit_kernel, fused_gather,
                                       hash_kernel, mlen_kernel, seq_kernel)
+    from lz4net_tpu_torch.utils import corpus
 
     lens = [len(b) for b in blocks]
     n_data = sum(lens)
@@ -273,7 +279,24 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
         "lz4net_tpu/ops/hash_kernel.py:394", hash_kernel,
         lambda: hash_kernel.bucket_prev(u32, us4, h4, h8, D),
         lambda: hash_kernel.bucket_prev_reference(u32, us4, h4, h8, D),
-        n_bytes=5 * B * D * i4, n_ops=B * D * 30, plain_reps=1)
+        n_bytes=5 * B * D * i4, n_ops=B * D * 30, plain_reps=1, split=True)
+    # the HC L5, hash-tier and chain-fast paths call it on these inputs too
+    for De in (4096, seq_kernel.MAX_D):
+        # corpus.bucket_edge_rows: one repeated byte, periods 127-256,
+        # distinct words in one bucket, text, every position in one bucket
+        names, xe = corpus.bucket_edge_rows(De, SEED)
+        ue = ev._u32(torch.from_numpy(xe).to("cuda").to(torch.int32))
+        use4 = ev._shift_left(ue, 4)
+        one = torch.tensor([n == "one_bucket" for n in names],
+                           device="cuda")[:, None]
+        bargs = (ue, use4, hash_kernel.hash_bucket(ue).masked_fill(one, 0),
+                 hash_kernel.hash_bucket8(ue, use4).masked_fill(one, 0), De)
+        kernel_row(
+            "bucket_prev", "", "", hash_kernel,
+            lambda: hash_kernel.bucket_prev(*bargs),
+            lambda: hash_kernel.bucket_prev_reference(*bargs),
+            n_bytes=5 * ue.numel() * i4, n_ops=ue.numel() * 30, plain_reps=1,
+            variant=f"edge rows, B={len(names)}, D={De}")
     off = torch.arange(D, dtype=torch.int32, device="cuda") - prev
     dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
                                  & (off > 4))
@@ -301,6 +324,26 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
         * (2 + 2 * ev.CU_ROUNDS) + 5 * B * SR * i4 + B * 8 * i4
         + 2 * B * i4,
         n_ops=B * D * 20, plain_reps=3)
+    for De, rounds in ((4096, ev.CU_ROUNDS), (seq_kernel.MAX_D, ev.CU_ROUNDS),
+                       (seq_kernel.MAX_D, ev.HC_CU_ROUNDS)):
+        # corpus.seq_edge_rows: all literals, one match to the row's end, a
+        # match past D, mlen <= 0 at matched positions, matches that skip
+        # segments and tiles, a row past S_cap, catch-up over whole literal
+        # runs, dense random matches
+        _, *erows, eS = corpus.seq_edge_rows(De, SEED)
+        eargs = (*(torch.from_numpy(a).to("cuda") for a in erows), De, eS,
+                 0, rounds)
+        eSR = seq_kernel.slot_width(eS)
+        kernel_row(
+            "sequence_records", "", "", seq_kernel,
+            lambda: seq_kernel.sequence_records(*eargs),
+            lambda: seq_kernel.sequence_records_reference(*eargs),
+            n_bytes=lambda got: eargs[0].numel() * i4 + int(
+                got[5][:, 0].clamp(max=eS).sum()) * i4 * (2 + 2 * rounds)
+            + 5 * eargs[0].shape[0] * eSR * i4,
+            n_ops=eargs[0].numel() * 20, plain_reps=1,
+            variant=f"edge rows, B={eargs[0].shape[0]}, D={De}, "
+                    f"cu_rounds={rounds}")
     out_len = seq[5][:, 2].contiguous()
     n_rec = int((seq[5][:, 1] + 1).sum())
     eargs = (*seq[:5], out_len, O)
@@ -489,6 +532,21 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
         + 2 * B * i4,
         n_ops=B * D * 20, plain_reps=3,
         variant=f"HC, cu_rounds={ev.HC_CU_ROUNDS}")
+    # the whole match state of each HC path, as the path hands it over
+    for level, tiers in ((9, None), (5, None), (5, "hash")):
+        state = ev._match_stage(x, dl, D, ev.hc_rcap(level, D), level, tiers)
+        hargs = (*state, dl, pre, D, S_cap, 0, ev.HC_CU_ROUNDS)
+        kernel_row(
+            "sequence_records", "", "", seq_kernel,
+            lambda: seq_kernel.sequence_records(*hargs),
+            lambda: seq_kernel.sequence_records_reference(*hargs),
+            n_bytes=lambda got: B * D * i4 + int(got[5][:, 0].sum()) * i4
+            * (2 + 2 * ev.HC_CU_ROUNDS) + 5 * B * SR * i4 + B * 8 * i4
+            + 2 * B * i4,
+            n_ops=B * D * 20, plain_reps=1,
+            variant=f"HC L{level} path's match state"
+                    + (f", {tiers} tiers" if tiers else "")
+                    + f", cu_rounds={ev.HC_CU_ROUNDS}")
 
     # ---- slice phases: each HC path through the engine --------------------
     enc = cuda_engine.encoder("cuda")
@@ -1052,6 +1110,7 @@ def main() -> int:
         from lz4net_tpu_torch.ops import decode_vector as dv
         from lz4net_tpu_torch.ops import (fused_gather, parse_kernel,
                                           records_kernel, resolve_kernel)
+        from lz4net_tpu_torch.tools.seq_clocks import kernel_split
         from lz4net_tpu_torch.utils import corpus
     except ImportError as exc:
         print(f"chip_smoke: the lz4net_tpu_torch package is missing "
@@ -1091,10 +1150,11 @@ def main() -> int:
 
     def kernel_row(kname, source, replaces, mod, fn, plain, n_bytes,
                    n_ops, library=None, plain_reps=REPS, counter="launches",
-                   variant=None, defined=None):
+                   variant=None, defined=None, split=False):
         """Check ``fn`` (the kernel) against ``plain`` and time both; a
         ``variant`` adds these numbers to kernel ``kname``'s row;
-        ``defined`` maps outputs to the part the kernel defines."""
+        ``defined`` maps outputs to the part the kernel defines; ``split``
+        adds the device ms of each CUDA kernel behind the call."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, defined(got) if defined else got,
@@ -1112,6 +1172,8 @@ def main() -> int:
         nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
+        if split:
+            nums["sub_ms"] = kernel_split(fn)
         if variant is None:
             rows.append({"name": kname, "route": "cuda", "source": source,
                          "replaces": replaces, "module": mod,
@@ -1123,7 +1185,12 @@ def main() -> int:
               + f": {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by}"
               + (f", library {lib_ms:.4f} ms" if lib_ms else "")
-              + f"), max abs err {err}; {card}")
+              + f"), max abs err {err}"
+              + ("; by kernel (torch.profiler): " + ("; ".join(
+                  f"{k} {v:.4f} ms"
+                  for k, v in nums["sub_ms"].items()) if nums["sub_ms"]
+                  else "not measured") if split else "")
+              + f"; {card}")
         return got
 
     # Bytes each function must move: outputs written whole, inputs read

@@ -38,6 +38,8 @@ from .. import _build
 
 LANE = 128
 CHUNK = 4 * LANE
+MAX_D = (1 << 17) - CHUNK    # the kernel's tables keep position + 1 in
+                             # 17 bits
 NB = 8192                    # buckets: the reference's 64K-input table
 NBROWS = 64                  # NB in 128-bucket rows
 HASH_MUL = -1640531535       # 2654435761 as int32
@@ -71,8 +73,8 @@ def _check(wa, wb, h4, h8, D):
             raise TypeError("wa, wb, h4, h8 must be int32 on one device")
         if t.dim() != 2 or t.shape != wa.shape or t.shape[1] != D:
             raise ValueError("wa, wb, h4, h8 must all be [B, D]")
-    if D % CHUNK:
-        raise ValueError(f"D must be a multiple of {CHUNK}")
+    if D % CHUNK or D > MAX_D:
+        raise ValueError(f"D must be a multiple of {CHUNK}, at most {MAX_D}")
 
 
 def bucket_prev(wa, wb, h4, h8, D: int):

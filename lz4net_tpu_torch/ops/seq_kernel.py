@@ -43,8 +43,7 @@ from .emit_kernel import BIGKEY
 from .parse_kernel import _orbit_of_zero
 
 TILE = 4096          # the kernel's scan tile; D must be a multiple
-MAX_D = 13 * 8192    # 96 KB blocks; the kernel keeps 2 bytes a position
-                     # in shared memory
+MAX_D = 13 * 8192    # 96 KB blocks, the widest the encoder takes
 
 launches = 0
 
@@ -90,14 +89,12 @@ def sequence_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
     outs = [torch.empty((B, SR), dtype=torch.int32, device=u32.device)
             for _ in range(5)]
     stats = torch.empty((B, 8), dtype=torch.int32, device=u32.device)
-    chain = torch.empty((B, 2, D), dtype=torch.int32, device=u32.device)
     slots = torch.empty((B, 4, S_cap), dtype=torch.int32,
                         device=u32.device)
     _build.launch("lz4t_sequence_records", u32.device,
                   *(t.data_ptr() for t in ins),
                   *(t.data_ptr() for t in outs), stats.data_ptr(),
-                  chain.data_ptr(), slots.data_ptr(), B, D, S_cap, SR, P,
-                  cu_rounds)
+                  slots.data_ptr(), B, D, S_cap, SR, P, cu_rounds)
     launches += 1
     return (*outs, stats)
 

@@ -402,3 +402,109 @@ def parse_edge_rows(seed: int = 0):
     comp_len = np.array([len(b) for b in blocks]
                         + [C, C - 1, 4096, 4095, 1, 0], np.int32)
     return comp, comp_len, C
+
+
+def _u32_words(x):
+    """Little-endian 4-byte words of the byte rows ``x`` [B, D] at every
+    position (zero past the row), as int32 numpy arrays."""
+    import numpy as np
+
+    w = np.zeros(x.shape, np.int64)
+    for k in range(4):
+        w[:, :x.shape[1] - k] |= x[:, k:].astype(np.int64) << (8 * k)
+    return w.astype(np.uint32).view(np.int32)
+
+
+def seq_edge_rows(D: int, seed: int = 0):
+    """Per-position match state that drives ``sequence_records``' edge
+    cases, for blocks of D bytes (D a multiple of 4096): (names, u32,
+    matched, off, mlen, end_abs, pre_len, S_cap), the arrays [B, D] (the
+    last two [B]) int32 numpy, u32 the words of each row's bytes, S_cap
+    the encoder's record cap for D.
+
+    * all literals (nothing matched);
+    * one match covering the row from position 16 to its end;
+    * matches up to the row's end, the last running 5000 bytes past D;
+    * matched positions whose mlen is -2, -1 or 0 (each steps by one)
+      among short matches;
+    * sparse matches long enough to skip whole 32-position segments,
+      128-position groups and 1024-position tiles of the kernel's parse;
+    * every position matched with mlen 1: D tokens, past S_cap;
+    * bytes of period 7 with matches at offset 7 every 13 bytes, so each
+      match's catch-up runs over its whole literal run;
+    * dense random matches at random offsets, and the row's data 300
+      bytes short of D.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = ["all_literals", "one_match", "match_past_d", "mlen_le_0",
+             "skips", "overflow", "catch_up", "dense"]
+    B = len(names)
+    x = np.zeros((B, D), np.uint8)
+    text = np.frombuffer(silesia_like(D, seed), np.uint8)
+    x[:] = text
+    x[6] = np.resize(rng.integers(0, 256, 7, np.uint8), D)
+    x[7] = rng.integers(0, 256, D, np.uint8)
+    matched = np.zeros((B, D), np.int32)
+    off = np.zeros((B, D), np.int32)
+    mlen = np.zeros((B, D), np.int32)
+    matched[1, 16], off[1, 16], mlen[1, 16] = 1, 16, D - 16
+    q = np.arange(64, D - 100, 97)
+    matched[2, q], off[2, q], mlen[2, q] = 1, 64, 40
+    matched[2, D - 100], off[2, D - 100], mlen[2, D - 100] = 1, 200, 5000
+    m = rng.random(D) < 0.5
+    matched[3] = m
+    off[3] = rng.integers(1, 100, D)
+    mlen[3] = np.where(rng.random(D) < 0.5, rng.integers(-2, 1, D),
+                       rng.integers(4, 12, D))
+    q, k = 5, 0
+    while q < D:                       # skips of a segment, group, tile
+        matched[4, q], off[4, q] = 1, 1 + q % 500
+        mlen[4, q] = (40, 200, 6, 1100, 70, 3000, 6)[k % 7]
+        q += mlen[4, q] + int(rng.integers(0, 40))
+        k += 1
+    matched[5], off[5], mlen[5] = 1, 3, 1
+    q = np.arange(13, D, 13)
+    matched[6, q], off[6, q], mlen[6, q] = 1, 7, rng.integers(5, 10,
+                                                              len(q))
+    matched[7] = rng.random(D) < 0.9
+    off[7] = rng.integers(1, 30000, D)
+    mlen[7] = rng.integers(2, 20, D)
+    end_abs = np.full(B, D, np.int32)
+    end_abs[7] = D - 300
+    S_cap = -(-(D // 4 + 2) // 128) * 128 + 128
+    return (names, _u32_words(x), matched, off, mlen, end_abs,
+            np.zeros(B, np.int32), S_cap)
+
+
+def bucket_edge_rows(D: int, seed: int = 0):
+    """Byte rows that drive ``bucket_prev``'s edge cases, for blocks of D
+    bytes (D a multiple of 512): (names, x [B, D] uint8 numpy).
+
+    * one repeated byte (every word equal: the nearest at distance 1);
+    * random bytes of period 127, 128, 129, 255 and 256, across the near
+      window's 128-position rows and 512-position chunks;
+    * distinct 4-byte words that all land in one bucket of the 4-byte
+      table (``(bucket << 19 | r) * inverse`` of the odd multiplier);
+    * silesia-like text;
+    * ``one_bucket``: text whose every position the caller hashes to one
+      bucket of both tables (h4 = h8 = 0), so every chunk hits it more
+      than once and the count guard keeps it empty.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = ["repeat", "period_127", "period_128", "period_129",
+             "period_255", "period_256", "one_bucket_words", "text",
+             "one_bucket"]
+    x = np.zeros((len(names), D), np.uint8)
+    x[0] = 7
+    for j, p in enumerate((127, 128, 129, 255, 256)):
+        x[1 + j] = np.resize(rng.integers(0, 256, p, np.uint8), D)
+    inverse = pow(2654435761, -1, 1 << 32)
+    words = [((5 << 19) | int(r)) * inverse % (1 << 32)
+             for r in rng.choice(1 << 19, D // 4, replace=False)]
+    x[6] = np.array(words, np.uint32).view(np.uint8)
+    x[7] = x[8] = np.frombuffer(silesia_like(D, seed), np.uint8)
+    return names, x

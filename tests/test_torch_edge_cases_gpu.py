@@ -13,14 +13,19 @@ one byte wider.  ``parse_tokens`` and ``decode_sequencer``: the rows of
 ``corpus.decode_edge_rows`` (for ``parse_tokens`` packed with seeded junk
 rows, ``corpus.parse_edge_rows``), and
 ``decode_sequencer`` on output rows at its ``row_max`` and one byte wider.
+``sequence_records`` and ``bucket_prev``: the rows of
+``corpus.seq_edge_rows`` and ``corpus.bucket_edge_rows`` at D = 4096 and
+at the widest block, D = 106496 (``sequence_records`` at 2 and 8
+catch-up rounds).
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_edge_cases_gpu.py
 
-``mlen_edge_rows`` is shared with ``tests/test_torch_edge_cases.py``,
-which holds the plain versions against the JAX package on the CPU.
+``mlen_edge_rows`` is shared with ``tests/test_torch_edge_cases.py`` and
+``bucket_inputs`` with ``tests/test_torch_seq_hash_edge_cases.py``, which
+hold the plain versions against the JAX package on the CPU.
 """
 
 import numpy as np
@@ -32,8 +37,10 @@ from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
+from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import mlen_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
+from lz4net_tpu_torch.ops import seq_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 # (K, sub_step, D, rcap): the fast path's 8 offsets, the HC tiers' 24,
@@ -87,6 +94,18 @@ def mlen_inputs(x, dl):
     m8 = torch.arange(x.shape[1]) % 5 == 0
     return (xt, torch.from_numpy(dl), u32, prev,
             m8.expand(x.shape[0], -1).contiguous())
+
+
+def bucket_inputs(names, x):
+    """``bucket_prev``'s operands for ``corpus.bucket_edge_rows``: the
+    words at i and i + 4 and their buckets, as torch tensors; the
+    ``one_bucket`` row's buckets all 0."""
+    u32 = ev._u32(torch.from_numpy(x.astype(np.int32)))
+    us4 = ev._shift_left(u32, 4)
+    h4 = hash_kernel.hash_bucket(u32)
+    h8 = hash_kernel.hash_bucket8(u32, us4)
+    one = torch.tensor([n == "one_bucket" for n in names])[:, None]
+    return u32, us4, h4.masked_fill(one, 0), h8.masked_fill(one, 0)
 
 
 @pytest.fixture
@@ -273,3 +292,29 @@ def test_decode_sequencer_at_the_staged_row_limit(cuda, extra):
         _equal(got, want)
         ok = want[1][:, 0] >= 0
         assert ok.tolist() == [D == width] * 3 + [False, True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4096, 106496])
+@pytest.mark.parametrize("cu_rounds", [2, 8])
+def test_sequence_records_edge_rows_on_the_card(cuda, D, cu_rounds):
+    names, *rows, S_cap = corpus.seq_edge_rows(D)
+    args = [torch.from_numpy(a).to(cuda) for a in rows]
+    for cap in (S_cap, 300):          # and a cap most rows pass
+        before = seq_kernel.launches
+        got = seq_kernel.sequence_records(*args, D, cap, 0, cu_rounds)
+        assert seq_kernel.launches == before + 1
+        _equal(got, seq_kernel.sequence_records_reference(
+            *args, D, cap, 0, cu_rounds))
+    assert int(got[5][names.index("overflow"), 0]) == D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4096, 106496])
+def test_bucket_prev_edge_rows_on_the_card(cuda, D):
+    names, x = corpus.bucket_edge_rows(D)
+    args = [t.to(cuda) for t in bucket_inputs(names, x)]
+    before = hash_kernel.launches
+    got = hash_kernel.bucket_prev(*args, D)
+    assert hash_kernel.launches == before + 1
+    _equal([got], [hash_kernel.bucket_prev_reference(*args, D)])

@@ -6,7 +6,10 @@ integer and must be equal (tolerance 0).  The JAX side runs its Pallas
 kernels in interpret mode where it has one, and its XLA formulation
 (``_bucket_prev_scan``, ``_match_lengths``) beside it.  ``emit_bytes``
 is compared on the rows where the JAX kernel reported no window miss;
-the port's search cannot miss.
+the port's search cannot miss.  ``sequence_records`` is also held against
+the JAX kernel on three rows of ``corpus.seq_edge_rows`` (a match past D,
+matches that skip segments and tiles, catch-up over whole literal runs),
+at the shapes of the first comparison, so its compile serves both.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from lz4net_tpu.ops import hash_kernel as jhash  # noqa: E402
 from lz4net_tpu.ops import mlen_kernel as jmlen  # noqa: E402
 from lz4net_tpu.ops import seq_kernel as jseq  # noqa: E402
 from lz4net_tpu.utils import corpus  # noqa: E402
+from lz4net_tpu_torch.utils import corpus as tcorpus  # noqa: E402
 from lz4net_tpu_torch.ops import emit_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
@@ -186,6 +190,31 @@ def test_sequence_records_matches_jax_interpret_kernel(stages):
     np.testing.assert_array_equal(got[5][:, :6].numpy(),
                                   np.asarray(want[5])[:, :6])
     assert (got[5][:, 0] > 0).any()             # tokens in some rows
+
+
+# rows inside the JAX kernel's domain: its chain threading under-marks a
+# step of one position (mlen <= 1 at a matched position, which the
+# encoder never makes), as the JAX mark_chain kernel does
+SEQ_EDGE_ROWS = ("match_past_d", "skips", "catch_up")
+
+
+def test_sequence_records_edge_rows_match_jax_interpret_kernel(stages):
+    names, *rows, S_cap = tcorpus.seq_edge_rows(D)
+    assert S_cap == stages["S_cap"]             # one compile for both
+    sel = [names.index(n) for n in SEQ_EDGE_ROWS]
+    u32, matched, off, mlen, end_abs, pre_len = (a[sel] for a in rows)
+    got = seq_kernel.sequence_records(
+        *(torch.from_numpy(a) for a in (u32, matched, off, mlen, end_abs,
+                                        pre_len)), D, S_cap)
+    want = jseq.sequence_records(
+        jnp.asarray(u32), jnp.asarray(matched), jnp.asarray(off),
+        jnp.asarray(mlen), jnp.asarray(end_abs), jnp.asarray(pre_len), D,
+        S_cap, P=0, cu_rounds=2)
+    names = ("s0k", "lit_src", "lit_len", "off", "mlen")
+    for name, g, w in zip(names, got[:5], want[:5]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+    np.testing.assert_array_equal(got[5][:, :6].numpy(),
+                                  np.asarray(want[5])[:, :6])
 
 
 def test_emit_bytes_matches_jax_interpret_kernel(stages):
