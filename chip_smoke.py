@@ -11,7 +11,11 @@
    back-to-back calls, median of 5; rowbase_gather also beside
    torch.gather, which the port never calls); parse_tokens also on
    corpus.parse_edge_rows (tokens, 0xFF runs, comp_len and chain jumps
-   across multiples of 32, 1024 and 4096, and junk);
+   across multiples of 32, 1024 and 4096, and junk); records_to_state
+   also with a dictionary prefix of P = 8192 bytes (pre_len 0, 8192 and
+   100 in turn) and on the edge rows (parse_edge_rows as parse_tokens
+   marks them, then corpus.token_edge_rows: tied estarts, out_len inside
+   a token, tokens longer than a tile) at P = 0 and 8192;
 4. decodes a 16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB,
    compressed by the port's reference compressor, through
    lz4net_tpu_torch.codec.decode_batch on the card; requires every block
@@ -23,7 +27,10 @@
    bucket_prev's time split between its two CUDA kernels
    (torch.profiler); bucket_prev also on corpus.bucket_edge_rows and
    sequence_records on corpus.seq_edge_rows, each at D = 4096 and at the
-   widest block, D = 106496;
+   widest block, D = 106496; emit_bytes also on corpus.emit_edge_rows
+   (the length-extension edges, records longer than a tile, one-byte
+   records, out_len inside a record) at S = 8192, O = 16384 and at the
+   path's S and O;
 7. encodes the same 256 blocks through
    lz4net_tpu_torch.models.cuda.compress_blocks_fast on the card;
    requires no host encode, every encode kernel and rowbase_gather to
@@ -66,7 +73,8 @@
    candidates (level 5's rcap) and on an exact sort tier's (level 9's
    rcap), and sequence_records with 8 catch-up rounds, on that tier's
    matches and on the whole match state of the level-9, level-5 and
-   hash-tier paths, each against its plain version;
+   hash-tier paths, and emit_bytes on each of those paths' records,
+   each against its plain version;
 11. encodes the same 256 blocks at HC level 9 (sort tiers) and 5 (suffix
    tiers) through lz4net_tpu_torch.models.cuda.compress_blocks_hc_fast,
    and at level 5 with the hash tiers (hc_tiers="hash"); requires for
@@ -82,7 +90,8 @@
    mark_chain on the parse chain of the 256 blocks' match state, and
    table_gather on the offsets and lengths at the tokens and on the
    catch-up words, each beside torch.gather (the catch-up words again 20
-   times in turns with torch.gather); lane_lookup and diag_gather
+   times in turns with torch.gather); emit_bytes on the chain path's
+   records; lane_lookup and diag_gather
    at tools/probe_fused.py's shapes with B=256, each against its plain
    version and beside torch.gather;
 13. the probe phase: lane_lookup and diag_gather through their entry
@@ -353,7 +362,21 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
         lambda: emit_kernel.emit_bytes(*eargs),
         lambda: emit_kernel.emit_bytes_reference(*eargs),
         n_bytes=5 * n_rec * i4 + 2 * B * O * i4 + B * i4,
-        n_ops=B * O * (20 + 2 * SR.bit_length()))
+        n_ops=B * O * 20)
+    # corpus.emit_edge_rows: the length-extension edges, records longer
+    # than a tile, one-byte records, out_len inside a record; at the CPU
+    # tests' S and O and at this path's
+    for eS, eO in ((8192, 16384), (SR, O)):
+        _, *efields, eol = corpus.emit_edge_rows(eS, eO, SEED)
+        e_args = (*(torch.from_numpy(a).to("cuda") for a in efields),
+                  torch.from_numpy(eol).to("cuda"), eO)
+        kernel_row(
+            "emit_bytes", "", "", emit_kernel,
+            lambda: emit_kernel.emit_bytes(*e_args),
+            lambda: emit_kernel.emit_bytes_reference(*e_args),
+            n_bytes=5 * int((e_args[0] < emit_kernel.BIGKEY).sum()) * i4
+            + 2 * 3 * eO * i4 + 3 * i4,
+            n_ops=3 * eO * 20, variant=f"edge rows, B=3, S={eS}, O={eO}")
     lit = torch.where(cidx >= 0, cidx, 0)
     err = max_abs_err(torch, fused_gather.rowbase_gather(x, lit),
                       fused_gather.rowbase_gather_reference(x, lit))
@@ -448,7 +471,8 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     from lz4net_tpu_torch.models import cuda as cuda_engine
     from lz4net_tpu_torch.models import reference
     from lz4net_tpu_torch.ops import encode_vector as ev
-    from lz4net_tpu_torch.ops import hash_kernel, mlen_kernel, seq_kernel
+    from lz4net_tpu_torch.ops import (emit_kernel, hash_kernel, mlen_kernel,
+                                      seq_kernel)
 
     lens = [len(b) for b in blocks]
     n_data = sum(lens)
@@ -536,7 +560,7 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     for level, tiers in ((9, None), (5, None), (5, "hash")):
         state = ev._match_stage(x, dl, D, ev.hc_rcap(level, D), level, tiers)
         hargs = (*state, dl, pre, D, S_cap, 0, ev.HC_CU_ROUNDS)
-        kernel_row(
+        recs = kernel_row(
             "sequence_records", "", "", seq_kernel,
             lambda: seq_kernel.sequence_records(*hargs),
             lambda: seq_kernel.sequence_records_reference(*hargs),
@@ -547,6 +571,17 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
             variant=f"HC L{level} path's match state"
                     + (f", {tiers} tiers" if tiers else "")
                     + f", cu_rounds={ev.HC_CU_ROUNDS}")
+        # and emit_bytes on the records that state gives
+        eargs = (*recs[:5], recs[5][:, 2].contiguous(), O)
+        kernel_row(
+            "emit_bytes", "", "", emit_kernel,
+            lambda: emit_kernel.emit_bytes(*eargs),
+            lambda: emit_kernel.emit_bytes_reference(*eargs),
+            n_bytes=5 * int((recs[5][:, 1] + 1).sum()) * i4
+            + 2 * B * O * i4 + B * i4,
+            n_ops=B * O * 20, plain_reps=1,
+            variant=f"HC L{level} path's records"
+                    + (f", {tiers} tiers" if tiers else ""))
 
     # ---- slice phases: each HC path through the engine --------------------
     enc = cuda_engine.encoder("cuda")
@@ -650,7 +685,8 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
 
     from lz4net_tpu_torch import codec
     from lz4net_tpu_torch.models import reference
-    from lz4net_tpu_torch.ops import chain_kernel, fused_gather, seq_kernel
+    from lz4net_tpu_torch.ops import (chain_kernel, emit_kernel,
+                                      fused_gather, seq_kernel)
     from lz4net_tpu_torch.ops import encode_vector as ev
 
     lens = [len(b) for b in blocks]
@@ -718,6 +754,18 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
           f"{retime['ms']:.4f} ms (range {min(k_ms):.4f}-{max(k_ms):.4f}) "
           f"against torch.gather {retime['library_ms']:.4f} ms (range "
           f"{min(l_ms):.4f}-{max(l_ms):.4f}); {card}")
+
+    # emit_bytes on the records this path makes (its own producer of s0)
+    recs = ev.chain_records(u32, matched, off_all, mlen_all, dl,
+                            torch.zeros_like(dl), D, S_cap)
+    eargs = (*recs[:5], recs[5][:, 2].contiguous(), O)
+    kernel_row(
+        "emit_bytes", "", "", emit_kernel,
+        lambda: emit_kernel.emit_bytes(*eargs),
+        lambda: emit_kernel.emit_bytes_reference(*eargs),
+        n_bytes=5 * int((recs[5][:, 1] + 1).sum()) * i4 + 2 * B * O * i4
+        + B * i4, n_ops=B * O * 20, plain_reps=1,
+        variant="chain path's records, fast")
 
     # lane_lookup and diag_gather at tools/probe_fused.py's shapes, B=256
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1110,7 +1158,7 @@ def main() -> int:
         from lz4net_tpu_torch.ops import decode_vector as dv
         from lz4net_tpu_torch.ops import (fused_gather, parse_kernel,
                                           records_kernel, resolve_kernel)
-        from lz4net_tpu_torch.tools.seq_clocks import kernel_split
+        from lz4net_tpu_torch.tools._clocks import kernel_split
         from lz4net_tpu_torch.utils import corpus
     except ImportError as exc:
         print(f"chip_smoke: the lz4net_tpu_torch package is missing "
@@ -1219,7 +1267,6 @@ def main() -> int:
         + ecomp.shape[0] * (i4 + 1),
         n_ops=ecomp.numel() * 30,
         variant=f"edge rows, B={ecomp.shape[0]}, C={eC}")
-    n_tok = int(mark.sum())
     t0m, cidx, _stats = kernel_row(
         "records_to_state", "lz4net_tpu_torch/csrc/records_kernel.cu",
         "lz4net_tpu/ops/records_kernel.py:374", records_kernel,
@@ -1229,8 +1276,48 @@ def main() -> int:
             comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, 0),
         n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
         + 2 * B * Dt * i4 + B * 8 * i4,
-        n_ops=B * C * 30 + B * Dt * (20 + 3 * max(n_tok // B, 1)
-                                     .bit_length()))
+        n_ops=B * C * 30 + B * Dt * 20)
+    # a dictionary prefix of P = 8192 bytes (pre_len 0, P and 100 in turn)
+    P8 = 8192
+    pre8 = torch.tensor([(0, P8, 100)[j % 3] for j in range(B)],
+                        dtype=torch.int32, device="cuda")
+    kernel_row(
+        "records_to_state", "", "", records_kernel,
+        lambda: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre8, C, P8 + Dt, P8),
+        lambda: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre8, C, P8 + Dt, P8),
+        n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
+        + 2 * B * (P8 + Dt) * i4 + B * 8 * i4,
+        n_ops=B * C * 30 + B * (P8 + Dt) * 20,
+        variant=f"P={P8}, pre_len 0/{P8}/100, Dt={P8 + Dt}")
+    # the edge rows: parse_edge_rows as parse_tokens marks them (out_len
+    # the decoded length, C for the junk rows), then
+    # corpus.token_edge_rows (tied estarts, out_len inside a token, a
+    # token longer than a tile), at P = 0 and P = 8192
+    emark, ell, eml, _ = parse_kernel.parse_tokens(ecomp, ecl, eC)
+    eol = [n for *_, n in corpus.decode_edge_rows(SEED)]
+    eol += [eC] * (ecomp.shape[0] - len(eol))
+    eDt = -(-(max(eol[:-6]) + 1) // 8192) * 8192
+    _, *trows = corpus.token_edge_rows(eC, SEED)
+    rargs = [torch.cat([a, torch.from_numpy(t).to("cuda")]) for a, t in zip(
+        (ecomp, emark, ell, eml, ecl,
+         torch.tensor(eol, dtype=torch.int32, device="cuda")), trows)]
+    eB = rargs[0].shape[0]
+    for eP in (0, P8):
+        epre = torch.tensor([(0, eP, 100)[j % 3] if eP else 0
+                             for j in range(eB)], dtype=torch.int32,
+                            device="cuda")
+        kernel_row(
+            "records_to_state", "", "", records_kernel,
+            lambda: records_kernel.records_to_state(*rargs, epre, eC,
+                                                    eP + eDt, eP),
+            lambda: records_kernel.records_to_state_reference(
+                *rargs, epre, eC, eP + eDt, eP),
+            n_bytes=eB * eC * i4 + 3 * int(rargs[4].clamp(0, eC).sum()) * i4
+            + 3 * eB * i4 + 2 * eB * (eP + eDt) * i4 + eB * 8 * i4,
+            n_ops=eB * eC * 30 + eB * (eP + eDt) * 20,
+            variant=f"edge rows, B={eB}, C={eC}, P={eP}, Dt={eP + eDt}")
     is_lit = cidx >= 0
     lit_idx = torch.cummax(torch.where(is_lit, cidx.clamp(0, C - 1), 0),
                            dim=1).values

@@ -13,7 +13,9 @@ offset and the match-length extension.  For every output byte o below
 ``out_len`` the governing record is the last one with ``s0 <= o``; the
 byte is arithmetic in that record's fields.  Literal bytes come back as
 their input index in ``cidx`` (-1 elsewhere) with 0 in ``direct``.  The
-search is exact, so no byte goes ungoverned and ``miss`` is always 0.
+kernel finds each byte's record by a tile expansion over ``s0``, exact
+where ``s0`` never decreases (as both record producers give it), so no
+byte goes ungoverned and ``miss`` is always 0.
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ def _check(fields, out_len, O):
 
 def emit_bytes(s0, lit_start, lit_len, off, mlen, out_len, O: int):
     """s0/lit_start/lit_len/off/mlen: [B, S] int32; out_len: [B] int32.
-    Returns (direct [B, O], cidx [B, O], miss [B]), all int32."""
+    Returns (direct [B, O], cidx [B, O], miss [B]), all int32.
+
+    Precondition: ``s0`` never decreases along a row (``sequence_records``
+    and ``parse_records`` give that, dead records last at ``BIGKEY``).  It
+    is not checked: on a row where ``s0`` decreases the kernel's bytes may
+    differ from ``emit_bytes_reference``'s, but it reads and writes
+    nothing outside the buffers."""
     global launches
     fields = (s0, lit_start, lit_len, off, mlen)
     _check(fields, out_len, O)

@@ -1,9 +1,11 @@
 """Token marks -> per-output-byte decode state and the block certificate.
 
 Port of the TPU kernel ``lz4net_tpu/ops/records_kernel.py:
-records_to_state``.  The CUDA kernel is ``csrc/records_kernel.cu`` (its
-header says what bounds it on the H100 and what the design does about
-that); ``records_to_state_reference`` is its plain PyTorch version.
+records_to_state``.  The CUDA kernels are ``csrc/records_kernel.cu`` (a
+scan over the tokens, then a tile expansion over the output bytes, both
+launched by one call; its header says what bounds it on the H100 and
+what the design does about that); ``records_to_state_reference`` is its
+plain PyTorch version.
 
 For every output byte o (in the domain [0, Dt), whose first P positions
 are a dictionary prefix) the governing sequence is the last token whose
@@ -17,7 +19,8 @@ output start ``estart`` is <= o.  Outputs:
   0) - the hardened decoder's certificate.  Columns 5-7 held the TPU
   kernel's window-miss diagnostics; exact reads cannot miss.
 
-``mark`` must hold 0/1 values (as ``parse_tokens`` gives).
+``mark`` must hold 0/1 values and ``estart`` must never decrease (as
+``parse_tokens``' output gives).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from .. import _build
 
 TILE = 4096          # the kernel's scan tile; C must be a multiple
+EXPAND = 4096        # output bytes of an expansion tile
 M17 = (1 << 17) - 1
 VFLAG = 1 << 19
 
@@ -45,6 +49,20 @@ def _check(comp, mark, ll_all, ml_all, comp_len, out_len, pre_len, C):
         raise ValueError("comp_len/out_len/pre_len must be [B]")
 
 
+def scratch_words(B: int, C: int, Dt: int) -> int:
+    """int32 words of the kernels' scratch: the token tables [B, 4, C],
+    the scan's look-back words (two per segment of TILE positions), its
+    certificate partials [B, 8] and segment counter, and the tile index
+    [B, Dt / EXPAND rounded up]."""
+    return B * (4 * C + 2 * (C // TILE) + 8 + -(-Dt // EXPAND)) + 1
+
+
+def _aligned(t):
+    """``t`` contiguous from a 16-byte boundary (the kernel's int4 loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
                      pre_len, C: int, Dt: int, P: int = 0):
     """Returns (t0m [B, Dt], cidx [B, Dt], stats [B, 8]), all int32."""
@@ -56,13 +74,14 @@ def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
                                           Dt, P)
     if comp.device.type != "cuda":
         raise ValueError(f"unsupported device {comp.device}")
-    ins = [t.contiguous() for t in (comp, mark, ll_all, ml_all, comp_len,
-                                    out_len, pre_len)]
+    ins = [_aligned(t) for t in (comp, mark, ll_all, ml_all, comp_len,
+                                 out_len, pre_len)]
     B = comp.shape[0]
     t0m = torch.empty((B, Dt), dtype=torch.int32, device=comp.device)
     cidx = torch.empty_like(t0m)
     stats = torch.empty((B, 8), dtype=torch.int32, device=comp.device)
-    tok = torch.empty((B, 4, C), dtype=torch.int32, device=comp.device)
+    tok = torch.empty(scratch_words(B, C, Dt), dtype=torch.int32,
+                      device=comp.device)
     _build.launch("lz4t_records_to_state", comp.device,
                   *(t.data_ptr() for t in ins),
                   t0m.data_ptr(), cidx.data_ptr(), stats.data_ptr(),

@@ -24,8 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import statistics
-import subprocess
 
 import numpy as np
 import torch
@@ -34,60 +32,17 @@ from .. import _build
 from ..models import cuda as cuda_engine
 from ..ops import decode_sequencer as ds
 from ..utils import corpus
+from . import _clocks
+from ._clocks import check, event_ms
 
-# Row k of g_decode_clocks
+# Counter k of a block's clocks
 NAMES = ("parse: mask and next-word table", "parse: waits for the match "
          "warp", "tiles", "parse: tiles", "match warp: waits for tiles",
          "match steps", "matches in them", "long matches (the warp's)",
          "match warp: all")
-NCLK = 16
-
-PRELUDE = """
-namespace lz4t {
-constexpr int NCLK = 16;
-constexpr int CLK_BLOCKS = 8192;
-__device__ unsigned long long g_decode_clocks[CLK_BLOCKS * NCLK];
-}
-// thread 0 (the parse group's) and thread 256 (the match warp's lane 0)
-#define CLK_ADD(k, v)                                                  \\
-  do {                                                                 \\
-    if ((threadIdx.x & 255) == 0 && blockIdx.x < lz4t::CLK_BLOCKS)     \\
-      atomicAdd(&lz4t::g_decode_clocks[blockIdx.x * lz4t::NCLK + (k)], \\
-                (unsigned long long)(v));                              \\
-  } while (0)
-#define CLK_START long long clk_t_ = clock64();
-#define CLK(k)                         \\
-  do {                                 \\
-    const long long t_ = clock64();    \\
-    CLK_ADD(k, t_ - clk_t_);           \\
-    clk_t_ = t_;                       \\
-  } while (0)
-"""
-
-EPILOGUE = """
-// zero the clocks, and read them back as [blocks, 16] uint64
-extern "C" int lz4t_decode_clocks_reset(void* stream) {
-  void* p = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&p, lz4t::g_decode_clocks);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(p, 0, sizeof(lz4t::g_decode_clocks),
-                          (cudaStream_t)stream);
-  return (int)err;
-}
-
-extern "C" int lz4t_decode_clocks_read(void* dst, int blocks,
-                                       void* stream) {
-  return (int)cudaMemcpyFromSymbolAsync(
-      dst, lz4t::g_decode_clocks,
-      sizeof(unsigned long long) * lz4t::NCLK * blocks, 0,
-      cudaMemcpyDeviceToHost, (cudaStream_t)stream);
-}
-"""
-
 # (text of the source, the same text with its marks); each text occurs
 # once in the source
 MARKS = [
-    ('#include "common.cuh"\n', '#include "common.cuh"\n' + PRELUDE),
     ("  if (tid < PTHREADS) {\n    // ---- the 0xFF mask",
      "  if (tid < PTHREADS) {\n    CLK_START\n    // ---- the 0xFF mask"),
     ("    // ---- tiles of positions, in order",
@@ -119,71 +74,24 @@ MARKS = [
 ]
 
 
-def clocked_source() -> str:
-    """``decode_sequencer.cu`` with the marks and the clocks' reset and
-    read entries."""
-    with open(os.path.join(_build.CSRC, "decode_sequencer.cu")) as fh:
-        src = fh.read()
-    for old, new in MARKS:
-        if src.count(old) != 1:
-            raise SystemExit("decode_clocks: the place of a mark is not "
-                             f"found once in decode_sequencer.cu: {old!r}")
-        src = src.replace(old, new)
-    return src + EPILOGUE
-
-
 def build() -> ctypes.CDLL:
-    """The sequencer decoder with clocks, in its own library beside the
-    port's build."""
-    out_dir = os.path.join(_build.BUILD_DIR, "dclocks-" + _build._digest())
-    lib = os.path.join(out_dir, "liblz4t_dclocks.so")
-    if not os.path.exists(lib):
-        os.makedirs(out_dir, exist_ok=True)
-        clocked = os.path.join(out_dir, "decode_sequencer_clocks.cu")
-        with open(clocked, "w") as fh:
-            fh.write(clocked_source())
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                        _build.CSRC, "-shared", clocked, "-o", lib],
-                       check=True)
-    dll = ctypes.CDLL(lib)
+    """The sequencer decoder with clocks (thread 0, the parse group's,
+    and thread 256, the match warp's lane 0, add to them), in its own
+    library beside the port's build."""
+    with open(os.path.join(_build.CSRC, "decode_sequencer.cu")) as fh:
+        text = _clocks.marked(fh.read(), MARKS, "decode_sequencer.cu",
+                              _clocks.counters("(threadIdx.x & 255) == 0"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    dll.lz4t_decode_sequencer.argtypes = [P] * 5 + [I] * 3 + [P]
-    dll.lz4t_decode_clocks_reset.argtypes = [P]
-    dll.lz4t_decode_clocks_read.argtypes = [P, I, P]
-    for fn in (dll.lz4t_decode_sequencer, dll.lz4t_decode_clocks_reset,
-               dll.lz4t_decode_clocks_read):
-        fn.restype = ctypes.c_int
-    return dll
-
-
-def _check(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
-def event_ms(fn, inner=10, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+    return _clocks.build("dclocks", "decode_sequencer.cu", text,
+                         _build.CSRC,
+                         {"lz4t_decode_sequencer": [P] * 5 + [I] * 3 + [P]},
+                         plain=False)[0]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("decode_clocks: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _clocks.card()
     print(card)
     dll = build()
     blocks = corpus.split_blocks(corpus.silesia_like(16 << 20, seed=0),
@@ -204,22 +112,19 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def clocked():
-        _check(dll.lz4t_decode_sequencer(
+        check(dll.lz4t_decode_sequencer(
             comp.data_ptr(), comp_len.data_ptr(), out_len.data_ptr(),
             out.data_ptr(), status.data_ptr(), B, C, D, stream),
             "decode_sequencer")
 
     want_out, want_status = ds.decode_sequencer(comp, comp_len, out_len, D)
-    _check(dll.lz4t_decode_clocks_reset(stream), "reset")
+    _clocks.reset(dll)
     clocked()
-    rows = np.zeros((B, NCLK), np.uint64)
-    _check(dll.lz4t_decode_clocks_read(rows.ctypes.data, B, stream), "read")
-    torch.cuda.synchronize()
+    rows = _clocks.read(dll, B)
     if not torch.equal(out, want_out) or not torch.equal(status,
                                                           want_status):
         raise SystemExit("decode_clocks: rows differ from the kernel's")
 
-    rows = rows.astype(np.float64)
     parse = rows[:, 0] + rows[:, 3]
     slow = int(np.argmax(np.maximum(parse, rows[:, 8])))
     print(f"{B} blocks, C={C} D={D}; rows and status equal the kernel's; "

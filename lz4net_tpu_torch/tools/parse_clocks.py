@@ -24,8 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import statistics
-import subprocess
 
 import numpy as np
 import torch
@@ -34,62 +32,23 @@ from .. import _build
 from ..constants import maximum_output_length
 from ..ops import encode_sequencer as es
 from ..utils import corpus
+from . import _clocks
+from ._clocks import check, event_ms
 
 SECTIONS = ("stage", "windows", "catch-up", "token bytes", "extension",
             "re-match check", "last literals", "parse")
 COUNTS = ("windows", "sequences", "catch-up steps past the first byte",
           "extension steps past the first word", "literal bytes",
           "re-matches", "match lane sum", "windows with a carried candidate")
-NCLK = 16
 PRIMITIVES = ("shared load", "shuffle", "ballot",
               "__match_any_sync, 32 keys", "__match_any_sync, 8 keys",
               "atomicOr lane mask", "literal copy under 8 bytes")
 
-# Row k of g_parse_clocks: sections 0-7 (SECTIONS), counts 8-15 (COUNTS)
-PRELUDE = """
-namespace lz4t {
-constexpr int NCLK = 16;
-constexpr int CLK_BLOCKS = 8192;
-__device__ unsigned long long g_parse_clocks[CLK_BLOCKS * NCLK];
-}
-#define CLK_ADD(k, v)                                                  \\
-  do {                                                                 \\
-    if (threadIdx.x == 0 && blockIdx.x < lz4t::CLK_BLOCKS)             \\
-      atomicAdd(&lz4t::g_parse_clocks[blockIdx.x * lz4t::NCLK + (k)],  \\
-                (unsigned long long)(v));                              \\
-  } while (0)
-#define CLK_START long long clk_t_ = clock64();
-#define CLK(k)                         \\
-  do {                                 \\
-    const long long t_ = clock64();    \\
-    CLK_ADD(k, t_ - clk_t_);           \\
-    clk_t_ = t_;                       \\
-  } while (0)
-"""
-
-EPILOGUE = """
-// zero the section clocks, and read them back as [blocks, 16] uint64
-extern "C" int lz4t_parse_clocks_reset(void* stream) {
-  void* p = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&p, lz4t::g_parse_clocks);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(p, 0, sizeof(lz4t::g_parse_clocks),
-                          (cudaStream_t)stream);
-  return (int)err;
-}
-
-extern "C" int lz4t_parse_clocks_read(void* dst, int blocks, void* stream) {
-  return (int)cudaMemcpyFromSymbolAsync(
-      dst, lz4t::g_parse_clocks,
-      sizeof(unsigned long long) * lz4t::NCLK * blocks, 0,
-      cudaMemcpyDeviceToHost, (cudaStream_t)stream);
-}
-"""
-
+# Counter k of a block's clocks: sections 0-7 (SECTIONS), counts 8-15
+# (COUNTS)
 # (text of the source, the same text with its marks); each text occurs
 # once in the source
 MARKS = [
-    ('#include "common.cuh"\n', '#include "common.cuh"\n' + PRELUDE),
     # extension and catch-up steps past the first
     ("    const unsigned partial = __ballot_sync(FULL, k != 4);\n",
      "    const unsigned partial = __ballot_sync(FULL, k != 4);\n"
@@ -141,74 +100,26 @@ MARKS = [
 ]
 
 
-def clocked_source() -> str:
-    """``encode_sequencer.cu`` with the section marks and the clocks'
-    reset and read entries."""
-    with open(os.path.join(_build.CSRC, "encode_sequencer.cu")) as fh:
-        src = fh.read()
-    for old, new in MARKS:
-        if src.count(old) != 1:
-            raise SystemExit("parse_clocks: the place of a mark is not "
-                             f"found once in encode_sequencer.cu: {old!r}")
-        src = src.replace(old, new)
-    return src + EPILOGUE
-
-
 def build() -> ctypes.CDLL:
-    """The strict encoder with section clocks, and the primitives'
-    kernel, in one library beside the port's build."""
-    out_dir = os.path.join(_build.BUILD_DIR, "clocks-" + _build._digest())
-    lib = os.path.join(out_dir, "liblz4t_clocks.so")
-    if not os.path.exists(lib):
-        os.makedirs(out_dir, exist_ok=True)
-        clocked = os.path.join(out_dir, "encode_sequencer_clocks.cu")
-        with open(clocked, "w") as fh:
-            fh.write(clocked_source())
-        prims = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "warp_primitives.cu")
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                        _build.CSRC, "-shared", clocked, prims, "-o", lib],
-                       check=True)
-    dll = ctypes.CDLL(lib)
+    """The strict encoder with section clocks (lane 0 of each block adds
+    to them), and the primitives' kernel, in one library beside the
+    port's build."""
+    with open(os.path.join(_build.CSRC, "encode_sequencer.cu")) as fh:
+        text = _clocks.marked(fh.read(), MARKS, "encode_sequencer.cu",
+                              _clocks.counters())
     P, I = ctypes.c_void_p, ctypes.c_int
-    dll.lz4t_encode_sequencer.argtypes = [P] * 5 + [I] * 3 + [P]
-    dll.lz4t_parse_clocks_reset.argtypes = [P]
-    dll.lz4t_parse_clocks_read.argtypes = [P, I, P]
-    dll.lz4t_warp_primitives.argtypes = [P]
-    for fn in (dll.lz4t_encode_sequencer, dll.lz4t_parse_clocks_reset,
-               dll.lz4t_parse_clocks_read, dll.lz4t_warp_primitives):
-        fn.restype = ctypes.c_int
-    return dll
-
-
-def _check(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
-def event_ms(fn, inner=3, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+    prims = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "warp_primitives.cu")
+    return _clocks.build("clocks", "encode_sequencer.cu", text, _build.CSRC,
+                         {"lz4t_encode_sequencer": [P] * 5 + [I] * 3 + [P],
+                          "lz4t_warp_primitives": [P]},
+                         extra=[prims], plain=False)[0]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("parse_clocks: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _clocks.card()
     print(card)
     dll = build()
     blocks = corpus.split_blocks(corpus.silesia_like(16 << 20, seed=0),
@@ -228,23 +139,20 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def clocked():
-        _check(dll.lz4t_encode_sequencer(
+        check(dll.lz4t_encode_sequencer(
             src.data_ptr(), lens.data_ptr(), cap.data_ptr(), out.data_ptr(),
             written.data_ptr(), B, S, O, stream), "encode_sequencer")
 
     want_out, want_written = es.encode_sequencer(src, lens, cap, O)
-    _check(dll.lz4t_parse_clocks_reset(stream), "reset")
+    _clocks.reset(dll)
     clocked()
-    rows = np.zeros((B, NCLK), np.uint64)
-    _check(dll.lz4t_parse_clocks_read(rows.ctypes.data, B, stream), "read")
-    torch.cuda.synchronize()
+    rows = _clocks.read(dll, B)
     if not torch.equal(written, want_written):
         raise SystemExit("parse_clocks: written differs from the kernel's")
     cols = torch.arange(O, device="cuda")[None, :] < written[:, None]
     if not torch.equal(out * cols, want_out * cols):
         raise SystemExit("parse_clocks: payloads differ from the kernel's")
 
-    rows = rows.astype(np.float64)
     slow = int(np.argmax(rows[:, 7]))
     print(f"{B} blocks of {S} bytes; payloads equal the kernel's; "
           f"slowest block {slow}")
@@ -261,13 +169,14 @@ def main() -> int:
     print(f"  parse cycles a sequence {rows[:, 7].sum() / seqs:.1f}, "
           f"a window {rows[:, 1].sum() / rows[:, 8].sum():.1f}, a source "
           f"byte {rows[:, 7].sum() / float(lens.sum()):.2f}")
-    ms_clocked = event_ms(clocked)
-    ms_plain = event_ms(lambda: es.encode_sequencer(src, lens, cap, O))
+    ms_clocked = event_ms(clocked, inner=3)
+    ms_plain = event_ms(lambda: es.encode_sequencer(src, lens, cap, O),
+                        inner=3)
     print(f"kernel time: clocked build {ms_clocked:.4f} ms, the port's "
           f"{ms_plain:.4f} ms; the slowest block's parse {rows[slow, 7]:.0f} "
           f"cycles; {card}")
     steps = np.zeros(len(PRIMITIVES), np.float64)
-    _check(dll.lz4t_warp_primitives(steps.ctypes.data), "primitives")
+    check(dll.lz4t_warp_primitives(steps.ctypes.data), "primitives")
     print("cycles a dependent step of one warp: " + "; ".join(
         f"{name} {c:.1f}" for name, c in zip(PRIMITIVES, steps))
         + f"; {card}")

@@ -33,11 +33,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import os
 import re
-import statistics
-import subprocess
 
 import numpy as np
 import torch
@@ -46,72 +43,8 @@ from .. import _build
 from ..ops import encode_vector as ev
 from ..ops import hash_kernel, seq_kernel
 from ..utils import corpus
-
-NCLK = 8
-PRELUDE = """
-namespace lz4t {
-constexpr int NCLK = 8;
-constexpr int CLK_BLOCKS = 8192;
-__device__ unsigned long long g_seq_clocks[CLK_BLOCKS * NCLK];
-}
-#ifdef LZ4T_CLOCKS
-#define CLK_START long long clk_t_ = clock64();
-#define CLK(k)                                                          \\
-  do {                                                                  \\
-    __syncthreads();                                                    \\
-    const long long t_ = clock64();                                     \\
-    if (threadIdx.x == 0 && blockIdx.x < lz4t::CLK_BLOCKS)              \\
-      lz4t::g_seq_clocks[blockIdx.x * lz4t::NCLK + (k)] += t_ - clk_t_; \\
-    clk_t_ = t_;                                                        \\
-  } while (0)
-#else
-#define CLK_START
-#define CLK(k)
-#endif
-"""
-
-EPILOGUE = """
-extern "C" int lz4t_seq_clocks_reset(void* stream) {
-  void* p = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&p, lz4t::g_seq_clocks);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(p, 0, sizeof(lz4t::g_seq_clocks),
-                          (cudaStream_t)stream);
-  return (int)err;
-}
-
-extern "C" int lz4t_seq_clocks_read(void* dst, int blocks, void* stream) {
-  return (int)cudaMemcpyFromSymbolAsync(
-      dst, lz4t::g_seq_clocks,
-      sizeof(unsigned long long) * lz4t::NCLK * blocks, 0,
-      cudaMemcpyDeviceToHost, (cudaStream_t)stream);
-}
-"""
-
-HEADER = re.compile(r"^  // ---- (\d)\. (.*?) -*$", re.M)
-KERNEL_END = "\n}\n\n}  // namespace\n}  // namespace lz4t\n"
-
-
-def clocked_source(src: str):
-    """``seq_kernel.cu`` text with the marks, and the phase names."""
-    heads = list(HEADER.finditer(src))
-    if not heads or src.count(KERNEL_END) != 1:
-        raise SystemExit("seq_clocks: no phase headers, or no single "
-                         "kernel end, in seq_kernel.cu")
-    if len(heads) >= NCLK:
-        raise SystemExit(f"seq_clocks: more than {NCLK - 1} phases")
-    names = [h.group(2) for h in heads]
-    out, at = [], 0
-    for k, h in enumerate(heads):
-        out.append(src[at:h.start()])
-        out.append("  CLK_START\n" if k == 0 else f"  CLK({k - 1});\n")
-        at = h.start()
-    end = src.index(KERNEL_END, at)
-    out.append(src[at:end] + f"\n  CLK({len(heads) - 1});" + src[end:])
-    text = "".join(out).replace('#include "common.cuh"\n',
-                                '#include "common.cuh"\n' + PRELUDE, 1)
-    return text + EPILOGUE, names
-
+from . import _clocks
+from ._clocks import check, event_ms, kernel_split
 
 def seq_pointer_args(src: str) -> int:
     """Pointer arguments of ``lz4t_sequence_records`` in this source (its
@@ -128,88 +61,16 @@ def build(csrc: str):
     pointer arguments of the sequence entry)."""
     with open(os.path.join(csrc, "seq_kernel.cu")) as fh:
         src = fh.read()
-    with open(os.path.join(csrc, "hash_kernel.cu"), "rb") as fh:
-        hsrc = fh.read()
-    text, names = clocked_source(src)
-    digest = hashlib.sha256(text.encode() + hsrc).hexdigest()[:16]
-    out_dir = os.path.join(_build.BUILD_DIR, "seqclocks-" + digest)
-    cu = os.path.join(out_dir, "seq_kernel_clocks.cu")
-    libs = [os.path.join(out_dir, n) for n in ("libclocked.so",
-                                               "libplain.so")]
-    if not all(map(os.path.exists, libs)):
-        os.makedirs(out_dir, exist_ok=True)
-        with open(cu, "w") as fh:
-            fh.write(text)
-        base = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared"]
-        procs = [subprocess.Popen(base + ["-DLZ4T_CLOCKS", cu, "-o",
-                                          libs[0]]),
-                 subprocess.Popen(base + ["-Xptxas", "-v", cu, os.path.join(
-                     csrc, "hash_kernel.cu"), "-o", libs[1]],
-                     stderr=subprocess.PIPE, text=True)]
-        log = procs[1].communicate()[1]
-        if any(p.wait() != 0 for p in procs):
-            raise SystemExit(f"seq_clocks: nvcc failed\n{log}")
-        # each kernel's registers and spills, as ptxas reports them
-        for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(line.strip())
+    text, layout = _clocks.phase_marks(src, "seq_kernel.cu")
+    (kernel, phases), = layout
     P, I = ctypes.c_void_p, ctypes.c_int
     nptr = seq_pointer_args(src)
-    dlls = [ctypes.CDLL(p) for p in libs]
-    for dll in dlls:
-        dll.lz4t_sequence_records.argtypes = [P] * nptr + [I] * 6 + [P]
-        dll.lz4t_seq_clocks_reset.argtypes = [P]
-        dll.lz4t_seq_clocks_read.argtypes = [P, I, P]
-    dlls[1].lz4t_bucket_prev.argtypes = [P] * 6 + [I, I, P]
-    for dll in dlls:
-        for fn in ("lz4t_sequence_records", "lz4t_seq_clocks_reset",
-                   "lz4t_seq_clocks_read", "lz4t_bucket_prev"):
-            if hasattr(dll, fn):
-                getattr(dll, fn).restype = ctypes.c_int
-    return dlls[0], dlls[1], names, nptr
-
-
-def _check(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
-def event_ms(fn, inner=10, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
-def kernel_split(fn, calls=10):
-    """Device ms a call of ``fn`` by the name of each of the port's CUDA
-    kernels it runs (torch.profiler), or None where the trace holds none
-    of them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {re.search(r"(\w+)\(", e.key).group(1):
-             e.self_device_time_total / 1e3 / calls
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and e.key.startswith("lz4t::")}
-    return split or None
+    clocked, plain = _clocks.build(
+        "seqclocks", "seq_kernel.cu", text, csrc,
+        {"lz4t_sequence_records": [P] * nptr + [I] * 6 + [P],
+         "lz4t_bucket_prev": [P] * 6 + [I, I, P]},
+        extra=[os.path.join(csrc, "hash_kernel.cu")])
+    return clocked, plain, [n for _, n in phases], nptr
 
 
 def encode_cell():
@@ -238,10 +99,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("seq_clocks: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _clocks.card()
     print(card)
     csrc = os.path.abspath(args.csrc)
     clocked, plain, names, nptr = build(csrc)
@@ -256,7 +114,7 @@ def main() -> int:
     near = torch.empty_like(u32)
 
     def bucket():
-        _check(plain.lz4t_bucket_prev(u32.data_ptr(), us4.data_ptr(),
+        check(plain.lz4t_bucket_prev(u32.data_ptr(), us4.data_ptr(),
                                     h4.data_ptr(), h8.data_ptr(),
                                     prev.data_ptr(), near.data_ptr(), B, D,
                                     stream), "bucket_prev")
@@ -291,25 +149,21 @@ def main() -> int:
                                        pre, *outs, stats, *scratch, slots)]
 
         def seq(dll):
-            _check(dll.lz4t_sequence_records(*ptrs, B, D, S_cap, SR, 0,
+            check(dll.lz4t_sequence_records(*ptrs, B, D, S_cap, SR, 0,
                                              rounds, stream),
                    "sequence_records")
 
         want = seq_kernel.sequence_records(u32, matched, off_all, mlen_all,
                                            dl, pre, D, S_cap, 0, rounds)
         for dll in (plain, clocked):
-            _check(clocked.lz4t_seq_clocks_reset(stream), "reset")
+            _clocks.reset(clocked)
             seq(dll)
             torch.cuda.synchronize()
             got = (*outs, stats)
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise SystemExit("seq_clocks: sequence_records differs "
                                  "from the port's")
-        rows = np.zeros((B, NCLK), np.uint64)
-        _check(clocked.lz4t_seq_clocks_read(rows.ctypes.data, B, stream),
-               "read")
-        torch.cuda.synchronize()
-        rows = rows[:, :len(names)].astype(np.float64)
+        rows = _clocks.read(clocked, B)[:, :len(names)]
         total = rows.sum(1)
         slow = int(np.argmax(total))
         print(f"sequence_records, cu_rounds {rounds}, {B} blocks, D={D}, "

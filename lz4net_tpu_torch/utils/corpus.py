@@ -508,3 +508,152 @@ def bucket_edge_rows(D: int, seed: int = 0):
     x[6] = np.array(words, np.uint32).view(np.uint8)
     x[7] = x[8] = np.frombuffer(silesia_like(D, seed), np.uint8)
     return names, x
+
+
+def token_edge_rows(C: int, seed: int = 0):
+    """Token rows made directly (not parsed) that drive
+    ``records_to_state``'s edge cases, at C compressed positions (C a
+    multiple of 4096 and at least 8192): (names, comp, mark, ll, ml,
+    comp_len, out_len), the first four [B, C] int32 numpy, the last two
+    [B].  Each token's 16-bit offset sits at the position the kernel reads
+    it (after its token byte, extension and literals); every output stays
+    below 24,576 bytes.
+
+    * ``tied_estart``: short tokens, and groups of three marks with
+      ll = ml = 0 (three tokens with one estart, the last of which governs
+      its bytes), among them groups whose estart is 0, 4096, 8192 and
+      12288 (the starts of the kernel's expansion tiles);
+    * ``cut_in_literal``, ``cut_in_match``: tokens of 300 literals and a
+      50-byte match, out_len inside the tenth token's literals or match;
+    * ``long_tokens``: 3000 literals (a 15 nibble and 12 extension bytes)
+      and a 15,000-byte match at offset 2 (whole tiles governed by one
+      token, the RLE remainder), then tokens at offsets 1-3.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = ["tied_estart", "cut_in_literal", "cut_in_match", "long_tokens"]
+    B = len(names)
+    comp = rng.integers(0, 240, (B, C)).astype(np.int32)
+    mark = np.zeros((B, C), np.int32)
+    ll = np.zeros((B, C), np.int32)
+    ml = np.zeros((B, C), np.int32)
+    comp_len = np.zeros(B, np.int32)
+    out_len = np.zeros(B, np.int32)
+
+    def place(row, toks):
+        """Tokens [(ll, ml, offset)] from position 0; returns their output
+        starts."""
+        q, est, starts, offs = 0, 0, [], []
+        for lit, mat, offset in toks:
+            ext = 1 + (lit - 15) // 255 if lit >= 15 else 0
+            comp[row, q] = min(lit, 15) << 4 | min(max(mat - 4, 0), 15)
+            mark[row, q], ll[row, q], ml[row, q] = 1, lit, mat
+            offs.append((q + 1 + ext + lit, offset))
+            starts.append(est)
+            est += lit + mat
+            q += 1 + ext + lit + (2 if mat else 1)
+            if lit == 0 and mat == 0:
+                q -= 1                   # a tie: the next mark adjoins
+        for mpos, offset in offs:        # after the tokens: kept as read
+            comp[row, mpos] = offset & 0xFF
+            comp[row, mpos + 1] = offset >> 8
+        comp_len[row] = q
+        return starts, est
+
+    toks, est = [], 0
+    for target in (4096, 8192, 12288, 20000):
+        toks += [(0, 0, 0)] * 2          # a tie at the tile start
+        while est < target:
+            lit, mat = int(rng.integers(0, 13)), int(rng.integers(4, 31))
+            if est + lit + mat > target:   # land on the target exactly
+                lit, mat = 0, target - est
+                if mat < 4:
+                    lit, mat = mat, 0
+            if len(toks) % 9 == 4:
+                toks += [(0, 0, 0)] * 2
+            toks.append((lit, mat, int(rng.integers(1, 65)) if mat else 0))
+            est += lit + mat
+    _, out_len[0] = place(0, toks + [(7, 0, 0)])
+    out_len[0] += 7
+
+    cut = [(300, 50, 60)] * 20 + [(10, 0, 0)]
+    starts, _ = place(1, cut)
+    out_len[1] = starts[9] + 100                  # inside the literals
+    starts, _ = place(2, cut)
+    out_len[2] = starts[9] + 300 + 20             # inside the match
+    starts, total = place(3, [(3000, 15000, 2)] + [
+        (int(rng.integers(0, 9)), int(rng.integers(4, 40)),
+         int(rng.integers(1, 4))) for _ in range(120)] + [(5, 0, 0)])
+    out_len[3] = total
+    return names, comp, mark, ll, ml, comp_len, out_len
+
+
+def emit_edge_rows(S: int, O: int, seed: int = 0):
+    """Sequence records made directly that drive ``emit_bytes``' edge
+    cases, three rows of S records for O output bytes (S >= 4096, O >=
+    16,384): (names, s0, lit_start, lit_len, off, mlen, out_len), the
+    first five [3, S] int32 numpy, out_len [3].  Each row's live records
+    are a prefix with s0 the exclusive sum of their sizes (as both record
+    producers give them), then dead records with s0 = BIGKEY (1 << 23)
+    and zero fields.
+
+    * ``lengths``: every pair of literal lengths 0, 14, 15, 269, 270, 525
+      and match lengths 0, 4, 18, 19, 273, 274 (the edges of the length
+      extensions), twice in seeded orders, then a literal-only record;
+    * ``long_records``: 9000 literals from byte 50 (a record longer than
+      a 4096-byte tile, covering one whole), then a 20,000-byte match
+      whose 79 extension bytes cross byte 12,288;
+    * ``short_records``: 2000 one-byte records (no literal, no match),
+      then 3-byte ones across byte 4096, then random ones, with out_len
+      inside a record's literals.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = ["lengths", "long_records", "short_records"]
+    fields = np.zeros((5, 3, S), np.int32)
+    fields[0] = 1 << 23
+    out_len = np.zeros(3, np.int32)
+
+    def size(lit, mat):
+        lit_ext = 1 + (lit - 15) // 255 if lit >= 15 else 0
+        m = mat - 4
+        m_ext = 1 + (m - 15) // 255 if mat > 0 and m >= 15 else 0
+        return 1 + lit_ext + lit + (2 + m_ext if mat > 0 else 0)
+
+    def place(row, recs):
+        """Records [(ll, ml)] from output byte 0; returns their starts."""
+        s0, src, starts = 0, 0, []
+        for k, (lit, mat) in enumerate(recs):
+            fields[:, row, k] = (s0, src, lit,
+                                 int(rng.integers(1, 65536)) if mat else 0,
+                                 mat)
+            starts.append(s0)
+            s0 += size(lit, mat)
+            src += lit + mat
+        out_len[row] = s0
+        return starts
+
+    pairs = [(a, m) for a in (0, 14, 15, 269, 270, 525)
+             for m in (0, 4, 18, 19, 273, 274)]
+    recs = [pairs[i] for i in rng.permutation(len(pairs))] + \
+        [pairs[i] for i in rng.permutation(len(pairs))] + [(40, 0)]
+    place(0, recs)
+
+    recs = [(3, 8)] * 10 + [(9000, 10)]
+    at = sum(size(*r) for r in recs)
+    while at < 12288 - 40:
+        recs.append((5, 6))
+        at += size(5, 6)
+    place(1, recs + [(2, 20000)] + [(4, 9)] * 30 + [(12, 0)])
+
+    recs = [(0, 0)] * 2000 + [(0, 4)] * 800
+    recs += [(int(rng.integers(0, 21)), int(rng.choice([0, 4, 9, 30])))
+             for _ in range(600)]
+    starts = place(2, recs + [(25, 0)])
+    k = next(k for k in range(2900, len(recs)) if recs[k][0] >= 10)
+    out_len[2] = starts[k] + 6
+    if int(out_len.max()) > O:
+        raise ValueError(f"the rows need O >= {int(out_len.max())}")
+    return names, *fields, out_len

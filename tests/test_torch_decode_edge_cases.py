@@ -18,6 +18,13 @@ text block, and one junk row for each fault rule of
   equal), the junk rows through the JAX reference decoder (it raises
   where the port reports a fault).
 
+* ``records_to_state``: the JAX parse of the same rows, beside the rows
+  of ``corpus.token_edge_rows`` (tied estarts, also at the kernel's
+  expansion-tile starts; out_len inside a token's literals or match; a
+  token longer than a tile), through the JAX kernel in interpret mode
+  and the plain version, at P = 0 and at P = 8192 with pre_len 0, 8192
+  and 100; compared where the JAX kernel reports no window miss.
+
 The same rows hold the kernels against these plain versions on the card
 (``tests/test_torch_edge_cases_gpu.py``).
 """
@@ -32,9 +39,11 @@ import jax.numpy as jnp  # noqa: E402
 from lz4net_tpu.models import reference as jreference  # noqa: E402
 from lz4net_tpu.ops import decode_pallas  # noqa: E402
 from lz4net_tpu.ops import parse_kernel as jpk  # noqa: E402
+from lz4net_tpu.ops import records_kernel as jrk  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
+from lz4net_tpu_torch.ops import records_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 ROWS = corpus.decode_edge_rows(0)
@@ -70,11 +79,25 @@ def _token_starts(block):
     return starts
 
 
-def test_parse_tokens_edge_rows_match_jax_interpret():
-    blocks = [b for _, b, _ in ROWS]
-    comp, comp_len, _, C, _ = dv.pack_blocks(blocks, [n for *_, n in ROWS])
-    jmark, jll, jml, jmiss = (np.asarray(x) for x in jpk.parse_tokens(
-        jnp.asarray(comp.astype(np.int32)), jnp.asarray(comp_len), C))
+@pytest.fixture(scope="module")
+def packed():
+    """The rows packed as the decode path packs them: (comp [B, C] int32,
+    comp_len, out_len, C, D)."""
+    comp, comp_len, out_len, C, D = dv.pack_blocks(
+        [b for _, b, _ in ROWS], [n for *_, n in ROWS])
+    return comp.astype(np.int32), comp_len, out_len, C, D
+
+
+@pytest.fixture(scope="module")
+def jax_parse(packed):
+    comp, comp_len, _, C, _ = packed
+    return [np.asarray(x) for x in jpk.parse_tokens(
+        jnp.asarray(comp), jnp.asarray(comp_len), C)]
+
+
+def test_parse_tokens_edge_rows_match_jax_interpret(packed, jax_parse):
+    comp, comp_len, _, C, _ = packed
+    jmark, jll, jml, jmiss = jax_parse
     mark, ll, ml, miss = (t.numpy() for t in parse_kernel.parse_tokens(
         torch.from_numpy(comp.astype(np.int32)), torch.from_numpy(comp_len),
         C))
@@ -90,6 +113,37 @@ def test_parse_tokens_edge_rows_match_jax_interpret():
         assert np.flatnonzero(mark[i]).tolist() == sorted(starts), name
         assert [(ll[i, q], ml[i, q]) for q in sorted(starts)] == \
             [starts[q] for q in sorted(starts)], name
+
+
+@pytest.mark.parametrize("P", [0, 8192])
+def test_records_to_state_edge_rows_match_jax_interpret(packed, jax_parse,
+                                                       P):
+    comp, comp_len, out_len, C, D = packed
+    jmark, jll, jml, jmiss = jax_parse
+    _, tcomp, tmark, tll, tml, tcl, tol = corpus.token_edge_rows(C)
+    args = [np.concatenate(pair) for pair in (
+        (comp, tcomp), (jmark, tmark), (jll, tll), (jml, tml),
+        (comp_len, tcl), (out_len, tol))]
+    B = len(args[0])
+    pre_len = np.zeros(B, np.int32) if P == 0 else \
+        np.resize(np.array([0, P, 100], np.int32), B)
+    Dt = P + D
+    jt0m, jcidx, jstats = (np.asarray(x) for x in jrk.records_to_state(
+        *map(jnp.asarray, args), jnp.asarray(pre_len), C, Dt, P))
+    t0m, cidx, stats = (x.numpy() for x in records_kernel.records_to_state(
+        *map(torch.from_numpy, args), torch.from_numpy(pre_len), C, Dt, P))
+    rows = (jstats[:, 5] == 0) & np.concatenate([~jmiss, [True] * len(tcl)])
+    assert rows[-len(tcl):].all() and rows.sum() >= B - 4
+    np.testing.assert_array_equal(t0m[rows], jt0m[rows])
+    np.testing.assert_array_equal(cidx[rows], jcidx[rows])
+    np.testing.assert_array_equal(stats[rows, :5], jstats[rows, :5])
+    np.testing.assert_array_equal(stats[:, 5:], 0)
+    # the well-formed rows the JAX parse read whole certify: strict, and
+    # total_out == out_len
+    good = ~jmiss[:len(GOOD)]
+    assert stats[:len(GOOD)][good, 2].all()
+    np.testing.assert_array_equal(stats[:len(GOOD)][good, 1],
+                                  out_len[:len(GOOD)][good])
 
 
 def test_decode_sequencer_edge_rows_match_jax():

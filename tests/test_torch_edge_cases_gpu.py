@@ -16,7 +16,12 @@ rows, ``corpus.parse_edge_rows``), and
 ``sequence_records`` and ``bucket_prev``: the rows of
 ``corpus.seq_edge_rows`` and ``corpus.bucket_edge_rows`` at D = 4096 and
 at the widest block, D = 106496 (``sequence_records`` at 2 and 8
-catch-up rounds).
+catch-up rounds).  ``records_to_state``: ``corpus.parse_edge_rows``
+through the plain ``parse_tokens`` beside ``corpus.token_edge_rows``, at
+P = 0 and 8192, and with Dt 3 bytes short of a multiple of 4.
+``emit_bytes``: ``corpus.emit_edge_rows`` at the CPU tests' S and O, at
+the encode path's, and at an O that is not a multiple of 4, and, outside
+its domain, on rows whose s0 decreases (no fault).
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -35,11 +40,13 @@ torch = pytest.importorskip("torch")
 
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
+from lz4net_tpu_torch.ops import emit_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import mlen_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
+from lz4net_tpu_torch.ops import records_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import seq_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
@@ -318,3 +325,73 @@ def test_bucket_prev_edge_rows_on_the_card(cuda, D):
     got = hash_kernel.bucket_prev(*args, D)
     assert hash_kernel.launches == before + 1
     _equal([got], [hash_kernel.bucket_prev_reference(*args, D)])
+
+
+def records_edge_inputs():
+    """``corpus.parse_edge_rows`` through the plain ``parse_tokens`` (out_len
+    the decoded length of each ``decode_edge_rows`` row, C for the junk
+    rows), then ``corpus.token_edge_rows``: (comp, mark, ll, ml, comp_len,
+    out_len) int32 CPU tensors, C and the decode path's D for them."""
+    comp, comp_len, C = corpus.parse_edge_rows(0)
+    out_len = [n for *_, n in corpus.decode_edge_rows(0)]
+    out_len += [C] * (len(comp) - len(out_len))
+    mark, ll, ml, _ = parse_kernel.parse_tokens_reference(
+        torch.from_numpy(comp), torch.from_numpy(comp_len), C)
+    _, *rows = corpus.token_edge_rows(C)
+    parsed = (comp, mark.numpy(), ll.numpy(), ml.numpy(), comp_len,
+              np.array(out_len, np.int32))
+    args = [torch.from_numpy(np.concatenate(pair)) for pair in zip(parsed,
+                                                                   rows)]
+    D = -(-(max(out_len[:-6]) + 1) // 8192) * 8192
+    return args, C, D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [0, 8192])
+@pytest.mark.parametrize("short", [0, 3])
+def test_records_to_state_edge_rows_on_the_card(cuda, P, short):
+    args, C, D = records_edge_inputs()
+    B = len(args[0])
+    pre = torch.zeros(B, dtype=torch.int32) if P == 0 else torch.tensor(
+        np.resize([0, P, 100], B), dtype=torch.int32)
+    Dt = P + D - short
+    before = records_kernel.launches
+    got = records_kernel.records_to_state(*(t.to(cuda) for t in args),
+                                          pre.to(cuda), C, Dt, P)
+    assert records_kernel.launches == before + 1
+    _equal(got, records_kernel.records_to_state_reference(*args, pre, C, Dt,
+                                                          P))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S, O", [(8192, 16384), (24576, 81920),
+                                  (8192, 16381)])
+def test_emit_bytes_edge_rows_on_the_card(cuda, S, O):
+    _, *fields, out_len = corpus.emit_edge_rows(S, O)
+    args = [torch.from_numpy(a) for a in (*fields, out_len)]
+    before = emit_kernel.launches
+    got = emit_kernel.emit_bytes(*(t.to(cuda) for t in args), O)
+    assert emit_kernel.launches == before + 1
+    _equal(got, emit_kernel.emit_bytes_reference(*args, O))
+
+
+@pytest.mark.gpu
+def test_emit_bytes_on_a_decreasing_s0_stays_in_its_buffers(cuda):
+    """``emit_bytes`` holds its plain version only where ``s0`` never
+    decreases; on rows where it does (the edge rows with their live starts
+    shuffled, and random starts with dead records among them) the bytes
+    are unspecified, but the kernel must not fault."""
+    S, O = 8192, 16384
+    _, *fields, out_len = corpus.emit_edge_rows(S, O)
+    rng = np.random.default_rng(3)
+    s0 = fields[0]
+    for row in s0:
+        live = int((row < emit_kernel.BIGKEY).sum())
+        row[:live] = rng.permutation(row[:live])
+    s0[2] = rng.integers(-5, O + 10, S)
+    s0[2, rng.integers(0, S, 500)] = emit_kernel.BIGKEY
+    args = [torch.from_numpy(a).to(cuda) for a in (*fields, out_len)]
+    direct, cidx, miss = emit_kernel.emit_bytes(*args, O)
+    torch.cuda.synchronize()
+    assert direct.shape == cidx.shape == (3, O) and miss.shape == (3,)
+    assert int(direct.min()) >= 0 and int(direct.max()) <= 255

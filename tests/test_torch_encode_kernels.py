@@ -9,7 +9,11 @@ is compared on the rows where the JAX kernel reported no window miss;
 the port's search cannot miss.  ``sequence_records`` is also held against
 the JAX kernel on three rows of ``corpus.seq_edge_rows`` (a match past D,
 matches that skip segments and tiles, catch-up over whole literal runs),
-at the shapes of the first comparison, so its compile serves both.
+at the shapes of the first comparison, so its compile serves both;
+``emit_bytes`` likewise on ``corpus.emit_edge_rows`` (every literal and
+match length at the edges of the length extensions, records longer than
+the kernel's 4096-byte tiles, one-byte records, dead records, out_len
+inside a record), made at the B, S and O of the ``stages`` rows.
 """
 
 import numpy as np
@@ -230,3 +234,19 @@ def test_emit_bytes_matches_jax_interpret_kernel(stages):
     assert rows.any() and not miss.any()
     np.testing.assert_array_equal(direct.numpy()[rows], np.asarray(jd)[rows])
     np.testing.assert_array_equal(cidx.numpy()[rows], np.asarray(jc)[rows])
+
+
+def test_emit_bytes_edge_rows_match_jax_interpret_kernel(stages):
+    S = stages["seq"][0].shape[1]
+    _, *fields, out_len = tcorpus.emit_edge_rows(S, stages["O"])
+    assert len(out_len) == len(stages["dl"])    # one compile for both
+    direct, cidx, miss = emit_kernel.emit_bytes(
+        *(torch.from_numpy(a) for a in (*fields, out_len)), stages["O"])
+    jd, jc, jmiss = jemit.emit_bytes(
+        *(jnp.asarray(a) for a in (*fields, out_len)), stages["O"])
+    assert not np.asarray(jmiss).any() and not miss.any()
+    np.testing.assert_array_equal(direct.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(cidx.numpy(), np.asarray(jc))
+    live = np.arange(stages["O"])[None, :] < out_len[:, None]
+    assert ((cidx.numpy() >= 0) <= live).all()
+    assert (cidx.numpy()[live] >= 0).mean() > 0.5   # mostly literals
