@@ -16,6 +16,9 @@
    100 in turn) and on the edge rows (parse_edge_rows as parse_tokens
    marks them, then corpus.token_edge_rows: tied estarts, out_len inside
    a token, tokens longer than a tile) at P = 0 and 8192;
+   resolve_wavefront also with a dictionary prefix of one chunk passed
+   through (start_chunk 1, Dt = 81,920) and on corpus.resolve_edge_rows
+   (junk rows included, ok compared) at start_chunk 0 and 1;
 4. decodes a 16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB,
    compressed by the port's reference compressor, through
    lz4net_tpu_torch.codec.decode_batch on the card; requires every block
@@ -69,7 +72,9 @@
    with the vector decoder) and the device pass alone;
 10. the fast-HC kernel phase at the encode path's shapes: hc_tables with
    the suffix tiers' three run tables and with the hash tiers' seven
-   tables, match_lengths with 24 dominant offsets on a suffix tier's
+   tables (each with the device time of its CUDA kernels by name,
+   torch.profiler, beside the wrapper's), and on corpus.hc_edge_rows'
+   eight tables at D = 106496, match_lengths with 24 dominant offsets on a suffix tier's
    candidates (level 5's rcap) and on an exact sort tier's (level 9's
    rcap), and sequence_records with 8 catch-up rounds, on that tier's
    matches and on the whole match state of the level-9, level-5 and
@@ -473,6 +478,7 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     from lz4net_tpu_torch.ops import encode_vector as ev
     from lz4net_tpu_torch.ops import (emit_kernel, hash_kernel, mlen_kernel,
                                       seq_kernel)
+    from lz4net_tpu_torch.utils import corpus
 
     lens = [len(b) for b in blocks]
     n_data = sum(lens)
@@ -504,7 +510,24 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
             lambda: hash_kernel.hc_tables_reference(*hargs),
             n_bytes=(1 + 2 * len(hs)) * B * D * i4,
             n_ops=B * D * len(hs) * 10, plain_reps=1,
-            counter="hc_launches", variant=variant)
+            counter="hc_launches", variant=variant, split=True)
+    # corpus.hc_edge_rows, all eight tables, at the widest block: buckets
+    # hit once, twice and 512 times a chunk, sticky early entries, the
+    # catch-all, 128- and 8192-bucket tables, ids outside [0, nb)
+    EW = 106496
+    ewa, ehs, esticky, enrows = corpus.hc_edge_rows(EW, SEED)
+    ewa = torch.from_numpy(ewa).to("cuda")
+    ehs = [torch.from_numpy(h).to("cuda") for h in ehs]
+    eargs = (ewa, ehs, esticky, enrows, EW)
+    kernel_row(
+        "hc_tables", "", "", hash_kernel,
+        lambda: hash_kernel.hc_tables(*eargs),
+        lambda: hash_kernel.hc_tables_reference(*eargs),
+        n_bytes=(1 + 2 * len(ehs)) * ewa.numel() * i4,
+        n_ops=ewa.numel() * len(ehs) * 10, plain_reps=1,
+        counter="hc_launches",
+        variant=f"edge rows, {len(ehs)} tables, B={ewa.shape[0]}, D={EW}",
+        split=True)
     # a suffix tier's candidates, as the level-5 path dispatches them
     prev = hash_kernel.bucket_prev(u32, us4, hash_kernel.hash_bucket(u32),
                                    hash_kernel.hash_bucket8(u32, us4), D)
@@ -1337,6 +1360,33 @@ def main() -> int:
         lambda: resolve_kernel.resolve_wavefront(T0, 0),
         lambda: resolve_kernel.resolve_wavefront_reference(T0, 0),
         n_bytes=B * Dt * i4 * 2 + B, n_ops=B * Dt * 6)
+    # a dictionary prefix of one chunk passed through (start_chunk 1): the
+    # same words after P8 dictionary bytes, their pointers moved by P8
+    import numpy as np
+    dict_bytes = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (B, P8), np.int32)).to("cuda")
+    T0p = torch.cat([dv.VFLAG | dict_bytes,
+                     torch.where(T0 >= dv.VFLAG, T0, T0 + P8)], 1)
+    kernel_row(
+        "resolve_wavefront", "", "", resolve_kernel,
+        lambda: resolve_kernel.resolve_wavefront(T0p, 1),
+        lambda: resolve_kernel.resolve_wavefront_reference(T0p, 1),
+        n_bytes=B * (P8 + Dt) * i4 * 2 + B, n_ops=B * (P8 + Dt) * 6,
+        variant=f"start_chunk=1, P={P8}, Dt={P8 + Dt}")
+    # corpus.resolve_edge_rows: chains through every chunk, pointers to
+    # lo - 1, to 0 and into the prefix, a chunk with no terminal, and junk
+    # rows (forward pointers, cycles, negative and big words), ok compared
+    rnames, rt0 = corpus.resolve_edge_rows(Dt, SEED)
+    rt0 = torch.from_numpy(rt0).to("cuda")
+    for sc in (0, 1):
+        kernel_row(
+            "resolve_wavefront", "", "", resolve_kernel,
+            lambda: resolve_kernel.resolve_wavefront(rt0, sc),
+            lambda: resolve_kernel.resolve_wavefront_reference(rt0, sc),
+            n_bytes=rt0.numel() * i4 * 2 + rt0.shape[0],
+            n_ops=rt0.numel() * 6,
+            variant=f"edge rows, B={len(rnames)}, Dt={Dt}, "
+            f"start_chunk={sc}")
 
     # ---- slice phase: the main path through the codec -------------------
     dec = cuda_engine.decoder("cuda")

@@ -33,7 +33,7 @@ SIGNATURES = {
     "lz4t_parse_tokens": [_P] * 6 + [_I, _I, _P],
     "lz4t_records_to_state": [_P] * 11 + [_I, _I, _I, _I, _P],
     "lz4t_rowbase_gather": [_P] * 4 + [_I, _I, _I, _P],
-    "lz4t_resolve_wavefront": [_P] * 3 + [_I, _I, _I, _P],
+    "lz4t_resolve_wavefront": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_bucket_prev": [_P] * 6 + [_I, _I, _P],
     "lz4t_match_lengths": [_P] * 10 + [_I] * 5 + [_P],
     "lz4t_sequence_records": [_P] * 13 + [_I] * 6 + [_P],

@@ -214,14 +214,16 @@ def hc_tables(wa, hs, sticky, nrows, D: int):
         raise ValueError(f"unsupported device {wa.device}")
     nt = len(hs)
     wa = wa.contiguous()
-    h_all = torch.stack(hs).contiguous()              # [nt, B, D]
-    # (buckets, sticky) a table, in host memory: the C entry copies them
-    # into the launch's arguments
+    hs = [h.contiguous() for h in hs]
+    # the streams' device pointers and (buckets, sticky) a table, in host
+    # memory: the C entry copies them into the launch's arguments
+    ptrs = (ctypes.c_void_p * nt)(*(h.data_ptr() for h in hs))
     meta = (ctypes.c_int * (2 * nt))(*(v for r, s in zip(nrows, sticky)
                                        for v in (r * LANE, int(bool(s)))))
-    cands = torch.empty_like(h_all)
+    cands = torch.empty((nt, *wa.shape), dtype=torch.int32,
+                        device=wa.device)
     _build.launch("lz4t_hc_tables", wa.device, wa.data_ptr(),
-                  h_all.data_ptr(), ctypes.addressof(meta),
+                  ctypes.addressof(ptrs), ctypes.addressof(meta),
                   cands.data_ptr(), wa.shape[0], D, nt)
     hc_launches += 1
     return tuple(cands.unbind(0))

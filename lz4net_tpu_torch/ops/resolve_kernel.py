@@ -8,10 +8,12 @@ that); ``resolve_wavefront_reference`` is its plain PyTorch version.
 State words: ``t0[o] = VFLAG | byte`` for a terminal, else the position
 of o's match source, which precedes o.  The output resolves in 8 KB
 chunks, in order: inside a chunk by pointer doubling over the chunk-local
-ordinals, across chunks by reading the bytes already resolved.  Chunks
-below ``start_chunk`` hold a pre-resolved dictionary prefix and pass
-through.  ``ok`` is False only for a block whose in-chunk pointers did
-not converge, which state words from ``records_to_state`` never cause.
+ordinals, across chunks by reading the bytes already resolved (the
+kernel collapses every chunk in parallel and takes only this last step
+in chunk order).  Chunks below ``start_chunk`` hold a pre-resolved
+dictionary prefix and pass through.  ``ok`` is False only for a block
+whose in-chunk pointers did not converge, which state words from
+``records_to_state`` never cause.
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ MAX_ROUNDS = 14      # 13 doublings reach 2^13 = CH; one more sees no change
 launches = 0
 
 
+def scratch_words(B: int, Dt: int) -> int:
+    """int32 words of the kernel's scratch: its chunk counter and one
+    ready flag a (block, chunk)."""
+    return 1 + B * (Dt // CH)
+
+
 def resolve_wavefront(t0, start_chunk: int = 0):
     """t0: [B, Dt] int32 (Dt % 8192 == 0).  Returns (out [B, Dt] int32
     bytes, ok [B] bool)."""
@@ -38,11 +46,16 @@ def resolve_wavefront(t0, start_chunk: int = 0):
     if t0.device.type != "cuda":
         raise ValueError(f"unsupported device {t0.device}")
     t0 = t0.contiguous()
+    if t0.data_ptr() % 16:                # the kernel reads int4s
+        t0 = t0.clone()
     B, Dt = t0.shape
     out = torch.empty_like(t0)
     ok = torch.empty(B, dtype=torch.bool, device=t0.device)
+    scratch = torch.empty(scratch_words(B, Dt), dtype=torch.int32,
+                          device=t0.device)
     _build.launch("lz4t_resolve_wavefront", t0.device, t0.data_ptr(),
-                  out.data_ptr(), ok.data_ptr(), B, Dt, start_chunk)
+                  out.data_ptr(), ok.data_ptr(), scratch.data_ptr(), B, Dt,
+                  start_chunk)
     launches += 1
     return out, ok
 

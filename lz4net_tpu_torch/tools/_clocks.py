@@ -32,9 +32,14 @@ NCLK = 16
 CLK_BLOCKS = 16384
 
 
-def counters(lead: str = "threadIdx.x == 0", barrier: bool = False) -> str:
+CTA = "blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)"
+
+
+def counters(lead: str = "threadIdx.x == 0", barrier: bool = False,
+             cta: str = CTA) -> str:
     """The counters and macros; ``lead`` is the test that picks a CTA's
-    lead thread."""
+    lead thread, ``cta`` the expression that numbers the CTAs (by
+    default over the launch's whole grid)."""
     sync = ("    __syncthreads();" + " " * 47 + "\\\n") if barrier else ""
     return f"""
 namespace lz4t {{
@@ -45,9 +50,7 @@ __device__ unsigned long long g_clocks[CLK_BLOCKS * NCLK];
 #ifdef LZ4T_CLOCKS
 #define CLK_ADD(k, v)                                                  \\
   do {{                                                                 \\
-    const unsigned cta_ = blockIdx.x + gridDim.x * (blockIdx.y +       \\
-                                                    gridDim.y *        \\
-                                                    blockIdx.z);       \\
+    const unsigned cta_ = {cta};                                       \\
     if (({lead}) && cta_ < lz4t::CLK_BLOCKS)                           \\
       atomicAdd(&lz4t::g_clocks[cta_ * lz4t::NCLK + (k)],              \\
                 (unsigned long long)(v));                              \\
@@ -237,8 +240,9 @@ def event_ms(fn, inner=10, reps=5):
 
 def kernel_split(fn, calls=10):
     """Device ms a call of ``fn`` by the name of each of the port's CUDA
-    kernels it runs (torch.profiler), or None where the trace holds none
-    of them."""
+    kernels it runs (torch.profiler; each kernel's mean over the launches
+    the trace kept, which may be fewer than the calls), or None where the
+    trace holds none of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -248,9 +252,10 @@ def kernel_split(fn, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {re.search(r"(\w+)\(", e.key).group(1):
-             e.self_device_time_total / 1e3 / calls
+    # "lz4t::(anonymous namespace)::name(...)", or "void lz4t::...::
+    # name<G, PF>(...)" for a template instance
+    split = {"".join(re.search(r"(\w+)(<[^>(]*>)?\(", e.key).groups("")):
+             e.self_device_time_total / 1e3 / e.count
              for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and e.key.startswith("lz4t::")}
+             if e.device_type == DeviceType.CUDA and "lz4t::" in e.key}
     return split or None

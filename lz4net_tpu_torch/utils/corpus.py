@@ -657,3 +657,152 @@ def emit_edge_rows(S: int, O: int, seed: int = 0):
     if int(out_len.max()) > O:
         raise ValueError(f"the rows need O >= {int(out_len.max())}")
     return names, *fields, out_len
+
+
+def resolve_edge_rows(Dt: int, seed: int = 0):
+    """State-word rows that drive ``resolve_wavefront``'s edge cases, Dt
+    positions each (Dt a multiple of 8192): (names, t0 [B, Dt] int32
+    numpy).  A state word is VFLAG | byte for a terminal, else the
+    position of the byte it copies.  The rows whose name does not start
+    with "junk" point backward only, as ``records_to_state``'s words do,
+    so a sequential walk defines their bytes at any start_chunk:
+
+    * ``nest_through``: offset-1 runs from position 1 to the end, a chain
+      that nests through every chunk;
+    * ``to_lo_minus_1``: the first positions of each chunk copy the last
+      byte of the one before, and runs inside the chunk copy them;
+    * ``to_zero``: every position copies position 0;
+    * ``into_prefix``: every position past the first chunk copies one of
+      the first chunk (a ``start_chunk`` prefix's bytes);
+    * ``no_terminal``: chunks past the first hold no terminal at all;
+    * ``mixed``: terminals, copies of any earlier position and deep
+      offset-1 runs, as ``tests/test_torch_decode.py`` makes them.
+
+    The junk rows break the domain, where only the plain version defines
+    the bytes and ``ok`` (False where a chunk's in-chunk pointers do not
+    converge in 14 rounds): ``junk_forward`` (pointers past the position,
+    some past the chunk), ``junk_cycles`` (2-cycles, which converge, and
+    3-cycles, which do not), ``junk_negative`` (negative words),
+    ``junk_big`` (words at or above VFLAG, up to 2^31 - 1, and pointers
+    at or past Dt) and ``junk_self`` (positions that copy themselves).
+    """
+    import numpy as np
+
+    CH, VFLAG = 8192, 1 << 19
+    if Dt <= 0 or Dt % CH:
+        raise ValueError("Dt must be a positive multiple of 8192")
+    rng = np.random.default_rng(seed)
+    names = ["nest_through", "to_lo_minus_1", "to_zero", "into_prefix",
+             "no_terminal", "mixed", "junk_forward", "junk_cycles",
+             "junk_negative", "junk_big", "junk_self"]
+    o = np.arange(Dt, dtype=np.int64)
+    lo = o // CH * CH
+    term = VFLAG | rng.integers(0, 256, Dt)
+    rows = []
+
+    r = o - 1
+    r[0] = VFLAG | 7
+    rows.append(r)
+
+    r = term.copy()                           # runs inside each chunk
+    off = o - lo
+    r[(off >= 100) & (off < 4000)] = o[(off >= 100) & (off < 4000)] - 100
+    r[(lo > 0) & (off < 100)] = lo[(lo > 0) & (off < 100)] - 1
+    rows.append(r)
+
+    r = np.zeros(Dt, np.int64)
+    r[0] = VFLAG | 200
+    rows.append(r)
+
+    r = term.copy()
+    r[CH:] = rng.integers(0, CH, Dt - CH)
+    rows.append(r)
+
+    r = term.copy()
+    r[CH:] = np.maximum(o[CH:] - rng.integers(1, CH + 2000, Dt - CH), 0)
+    rows.append(r)
+
+    pick = rng.random(Dt)
+    r = np.where(pick < 0.2, term, np.where(
+        pick < 0.5, (rng.random(Dt) * o).astype(np.int64), o - 1))
+    r[0] = term[0]
+    deep = CH + 100 if Dt > CH else 100
+    r[deep:deep + 6000] = o[deep:deep + 6000] - 1
+    rows.append(r)
+
+    valid = len(rows)
+    for name in names[valid:]:
+        r = np.where(rng.random(Dt) < 0.3, term,
+                     (rng.random(Dt) * o).astype(np.int64))
+        span = rng.random(Dt) < 0.5
+        if name == "junk_forward":
+            r[span] = o[span] + rng.integers(1, 12000, int(span.sum()))
+        elif name == "junk_cycles":
+            two = (off % 5 < 2) & (off < CH - 1)
+            r[two] = np.where(off[two] % 5 == 0, o[two] + 1, o[two] - 1)
+            three = (off % 5 >= 2) & (off < CH - 3)
+            k = off[three] % 5 - 2                # 0, 1, 2 of a 3-cycle
+            r[three] = np.where(k == 2, o[three] - 2, o[three] + 1)
+        elif name == "junk_negative":
+            r[span] = -rng.integers(1, 1 << 20, int(span.sum()))
+        elif name == "junk_big":
+            r[span] = rng.choice([VFLAG + 300, (1 << 31) - 1, Dt, Dt + 5,
+                                  VFLAG - 1], int(span.sum()))
+        else:
+            r[span] = o[span]
+        rows.append(r)
+    return names, np.stack(rows).astype(np.int32)
+
+
+def hc_edge_rows(D: int, seed: int = 0):
+    """Operands that drive ``hc_tables``' edge cases, for blocks of D
+    positions (D a multiple of 512): (wa [3, D] int32, hs, sticky,
+    nrows), hs eight bucket-id streams [3, D] int32, one a table; the
+    table sets of 1, 3, 7 and 8 tables are their first 1, 3, 7 and 8.
+    The words wa take four values, so that most stored entries verify.
+
+    * table 0 (8192 buckets): in each chunk, buckets hit once, twice and
+      by all 512 positions; ids below 0 and at or above the table's
+      size (the plain version clamps them);
+    * table 1 (8192 buckets, sticky): an early entry in each bucket, then
+      every chunk hits those buckets again;
+    * table 2 (1024 buckets, a run table): most positions hit the
+      catch-all bucket 1023, run starts hit their own;
+    * table 3 (128 buckets): 100 buckets hit once a chunk, the other
+      positions in four;
+    * tables 4-7: 128 and 8192 buckets, sticky and not, random ids with
+      some out of range.
+    """
+    import numpy as np
+
+    if D <= 0 or D % 512:
+        raise ValueError("D must be a positive multiple of 512")
+    rng = np.random.default_rng(seed)
+    B = 3
+    wa = rng.integers(0, 4, (B, D)).astype(np.int32)
+    i = np.arange(D)
+    c = i % 512                                    # position in its chunk
+    h0 = rng.integers(0, 8192, (B, D))
+    h0[:, c < 32] = 5000 + c[c < 32]               # hit once a chunk
+    h0[:, (c >= 32) & (c < 96)] = 6000 + (c[(c >= 32) & (c < 96)] - 32) // 2
+    h0[0, (i // 512) % 3 == 1] = 77                # whole chunks: 512 hits
+    h0[1, c >= 500] = rng.choice([-1, -300, 8192, 9000, 1 << 30],
+                                 int((c >= 500).sum()))
+    h1 = rng.integers(0, 64, (B, D))               # a few buckets, sticky
+    h1[:, :64] = np.arange(64)                     # their early entries
+    h2 = np.full((B, D), 1023)                     # the catch-all
+    starts = rng.random((B, D)) < 0.05
+    h2[starts] = rng.integers(0, 768, int(starts.sum()))
+    h3 = rng.integers(100, 104, (B, D))            # four hot buckets
+    h3[:, c < 100] = c[c < 100]                    # and 100 hit once
+    hs = [h0, h1, h2, h3]
+    nrows = [64, 64, 8, 1]
+    sticky = [False, True, False, False]
+    for t, (nr, st) in enumerate(((1, True), (64, False), (1, False),
+                                  (64, True))):
+        h = rng.integers(-20, nr * 128 + 20, (B, D))
+        h[:, (i // 512) % 2 == t % 2] %= 7         # dense chunks
+        hs.append(h)
+        nrows.append(nr)
+        sticky.append(st)
+    return wa, [h.astype(np.int32) for h in hs], sticky, nrows

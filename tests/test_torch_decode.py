@@ -2,7 +2,7 @@
 kernels), held against the JAX package and the oracles.
 
 * ``resolve_wavefront`` against a sequential numpy resolver of the same
-  state words;
+  state words, on random words and on ``corpus.resolve_edge_rows``;
 * ``decode_batch_vectorized`` against the JAX package's XLA branch
   (``decode_batch_vectorized(..., fused=False)``): out, total_out, ok,
   strict, consumed and needed equal, tolerance 0;
@@ -80,6 +80,21 @@ def _states(rng, B, Dt, start_chunk):
 def test_resolve_wavefront_matches_sequential(start_chunk):
     rng = np.random.default_rng(11 + start_chunk)
     t0 = _states(rng, 2, 3 * CH, start_chunk)
+    out, ok = resolve_kernel.resolve_wavefront(torch.from_numpy(t0),
+                                               start_chunk)
+    assert ok.all()
+    np.testing.assert_array_equal(out.numpy(),
+                                  _sequential_resolve(t0, start_chunk))
+
+
+@pytest.mark.parametrize("start_chunk", [0, 1, 2])
+def test_resolve_wavefront_edge_rows_match_sequential(start_chunk):
+    """``corpus.resolve_edge_rows``' in-domain rows (chains through every
+    chunk, pointers to lo - 1, to 0 and into the prefix, chunks with no
+    terminal) through the plain version, held against the sequential
+    walk; their ``ok`` is True."""
+    names, t0 = corpus.resolve_edge_rows(3 * CH)
+    t0 = t0[[not n.startswith("junk") for n in names]]
     out, ok = resolve_kernel.resolve_wavefront(torch.from_numpy(t0),
                                                start_chunk)
     assert ok.all()

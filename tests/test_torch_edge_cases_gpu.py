@@ -22,6 +22,10 @@ P = 0 and 8192, and with Dt 3 bytes short of a multiple of 4.
 ``emit_bytes``: ``corpus.emit_edge_rows`` at the CPU tests' S and O, at
 the encode path's, and at an O that is not a multiple of 4, and, outside
 its domain, on rows whose s0 decreases (no fault).
+``resolve_wavefront``: ``corpus.resolve_edge_rows``, junk rows
+included (``ok`` must match too), at start_chunk 0-3 and Dt = 8192,
+73728 and 262144.  ``hc_tables``: ``corpus.hc_edge_rows`` with 1, 3, 7
+and 8 tables at D = 512 and 106496.
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -47,6 +51,7 @@ from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import mlen_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import records_kernel  # noqa: E402
+from lz4net_tpu_torch.ops import resolve_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import seq_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
@@ -395,3 +400,33 @@ def test_emit_bytes_on_a_decreasing_s0_stays_in_its_buffers(cuda):
     torch.cuda.synchronize()
     assert direct.shape == cidx.shape == (3, O) and miss.shape == (3,)
     assert int(direct.min()) >= 0 and int(direct.max()) <= 255
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dt", [8192, 73728, 262144])
+@pytest.mark.parametrize("start_chunk", [0, 1, 2, 3])
+def test_resolve_wavefront_edge_rows_on_the_card(cuda, Dt, start_chunk):
+    names, t0 = corpus.resolve_edge_rows(Dt)
+    t0 = torch.from_numpy(t0)
+    before = resolve_kernel.launches
+    got = resolve_kernel.resolve_wavefront(t0.to(cuda), start_chunk)
+    assert resolve_kernel.launches == before + 1
+    want = resolve_kernel.resolve_wavefront_reference(t0, start_chunk)
+    _equal(got, want)
+    # a 3-cycle never converges: its chunks clear ok
+    assert bool(want[1][names.index("junk_cycles")]) == (
+        start_chunk >= Dt // resolve_kernel.CH)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [512, 106496])
+@pytest.mark.parametrize("nt", [1, 3, 7, 8])
+def test_hc_tables_edge_rows_on_the_card(cuda, D, nt):
+    wa, hs, sticky, nrows = corpus.hc_edge_rows(D)
+    wa = torch.from_numpy(wa).to(cuda)
+    hs = [torch.from_numpy(h).to(cuda) for h in hs[:nt]]
+    before = hash_kernel.hc_launches
+    got = hash_kernel.hc_tables(wa, hs, sticky[:nt], nrows[:nt], D)
+    assert hash_kernel.hc_launches == before + 1
+    _equal(got, hash_kernel.hc_tables_reference(wa, hs, sticky[:nt],
+                                                nrows[:nt], D))

@@ -21,6 +21,7 @@ from lz4net_tpu.ops import hash_kernel as jhash  # noqa: E402
 from lz4net_tpu.utils import corpus  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
+from lz4net_tpu_torch.utils import corpus as corpus_t  # noqa: E402
 
 
 def _t(a):
@@ -130,6 +131,33 @@ def test_hc_tables_match_jax_and_replay(D):
             np.testing.assert_array_equal(got[t][b].numpy(), replay[t])
     # a sticky table keeps its first entry: its hits are never nearer
     assert ((got[1] < 0) | (got[0] < 0) | (got[1] <= got[0])).all()
+
+
+def test_hc_tables_edge_rows_match_jax_and_replay():
+    """``corpus.hc_edge_rows``: buckets hit once, twice and 512 times a
+    chunk, sticky early entries, the catch-all, 128- and 8192-bucket
+    tables and ids outside [0, nb).  All eight tables against JAX (its
+    XLA scan clamps the ids as the plain version does); the sets of 1, 3,
+    7 and 8 tables against the replay, on clamped ids."""
+    D = 2048
+    wa, hs, sticky, nrows = corpus_t.hc_edge_rows(D)
+    wa_t, hs_t = _t(wa), [_t(h) for h in hs]
+    got = hash_kernel.hc_tables(wa_t, hs_t, sticky, nrows, D)
+    want = jhash.hc_tables(_j(wa_t), tuple(_j(h) for h in hs_t),
+                           tuple(sticky), tuple(nrows), D)
+    for t in range(len(hs)):
+        _eq(got[t], want[t], f"table {t}")
+        assert (got[t] >= 0).any(), t
+    for nt in (1, 3, 7, 8):
+        sub = hash_kernel.hc_tables(wa_t, hs_t[:nt], sticky[:nt],
+                                    nrows[:nt], D)
+        for b in range(wa.shape[0]):
+            clamped = [np.clip(h[b], 0, r * 128 - 1)
+                       for h, r in zip(hs[:nt], nrows[:nt])]
+            replay = _replay(wa[b].astype(np.int64), clamped, sticky[:nt],
+                             nrows[:nt])
+            for t in range(nt):
+                np.testing.assert_array_equal(sub[t][b].numpy(), replay[t])
 
 
 def test_hash_fold_wraps_like_jax():
