@@ -92,11 +92,18 @@
    size beside fast mode's and, for the first 8 blocks, beside the
    reference HC compressor's (models.reference.compress_block_hc);
 12. the chain record path's kernels at the fast path's shapes:
-   mark_chain on the parse chain of the 256 blocks' match state, and
+   mark_chain on the parse chain of the 256 blocks' match state and on
+   corpus.chain_edge_rows (step-1 rows, jumps on and one short of the
+   multiples of 32, 128 and 1024, tile skips, ends at, past and far past
+   D, negative steps, steps back, encoder-like rows) at D = 4096 and at
+   the widest block, D = 106496 (its plain version there checked, not
+   timed: one call walks the step-1 row's 106,496 steps), and
    table_gather on the offsets and lengths at the tokens and on the
-   catch-up words, each beside torch.gather (the catch-up words again 20
-   times in turns with torch.gather); emit_bytes on the chain path's
-   records; lane_lookup and diag_gather
+   catch-up words, each beside torch.gather (both again 20 times in turns
+   with torch.gather), and on corpus.gather_edge_rows (indices below 0,
+   at and past N and on row boundaries; K below 4 and not a multiple of
+   4; N = 128; 1-4 tables; an index view off a 16-byte boundary);
+   emit_bytes on the chain path's records; lane_lookup and diag_gather
    at tools/probe_fused.py's shapes with B=256, each against its plain
    version and beside torch.gather;
 13. the probe phase: lane_lookup and diag_gather through their entry
@@ -711,6 +718,7 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
     from lz4net_tpu_torch.ops import (chain_kernel, emit_kernel,
                                       fused_gather, seq_kernel)
     from lz4net_tpu_torch.ops import encode_vector as ev
+    from lz4net_tpu_torch.utils import corpus
 
     lens = [len(b) for b in blocks]
     n_data = sum(lens)
@@ -736,6 +744,17 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         lambda: chain_kernel.mark_chain_reference(g, D),
         n_bytes=lambda got: B * D * i4 + int(got.sum()) * i4,
         n_ops=B * D, plain_reps=1)
+    # corpus.chain_edge_rows at D = 4096 and at the widest block
+    for eD in (4096, chain_kernel.MAX_D):
+        enames, eg = corpus.chain_edge_rows(eD, SEED)
+        eg = torch.from_numpy(eg).to("cuda")
+        kernel_row(
+            "mark_chain", "", "", chain_kernel,
+            lambda: chain_kernel.mark_chain(eg, eD),
+            lambda: chain_kernel.mark_chain_reference(eg, eD),
+            n_bytes=lambda got: eg.numel() * i4 + int(got.sum()) * i4,
+            n_ops=eg.numel(), plain_reps=1 if eD == 4096 else 0,
+            variant=f"edge rows, B={len(enames)}, D={eD}")
     tok = seq_kernel.compact_indices((mark == 1) & m, S_cap, D) \
         .clamp(0, D - 1)
     tok64 = tok.long()
@@ -760,23 +779,57 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         n_bytes=B * S_cap * i4 * 3, n_ops=B * S_cap * 6,
         library=lambda: torch.gather(u32, 1, pa64),
         variant="catch-up words, 1 table of 32 bits")
-    # the one-table shape against torch.gather again, in turns, 20 medians
-    # each: is the kernel slower by more than the spread?
-    k_ms, l_ms = [], []
-    for _ in range(20):
-        k_ms.append(time_ms(torch, lambda: fused_gather.table_gather(
-            [u32], pa, (32,))))
-        l_ms.append(time_ms(torch, lambda: torch.gather(u32, 1, pa64)))
-    retime = {"reps": 20, "ms": statistics.median(k_ms),
-              "ms_range": [min(k_ms), max(k_ms)],
-              "library_ms": statistics.median(l_ms),
-              "library_range": [min(l_ms), max(l_ms)]}
-    next(r for r in rows if r["name"] == "table_gather")[
-        "variants"]["catch-up words, 1 table of 32 bits, re-timed"] = retime
-    print(f"kernel table_gather (1 table, re-timed in turns, 20 medians): "
-          f"{retime['ms']:.4f} ms (range {min(k_ms):.4f}-{max(k_ms):.4f}) "
-          f"against torch.gather {retime['library_ms']:.4f} ms (range "
-          f"{min(l_ms):.4f}-{max(l_ms):.4f}); {card}")
+    # corpus.gather_edge_rows: (N, K, tables), and an index view off a
+    # 16-byte boundary
+    for gN, gK, nt in ((128, 3, 1), (128, 5, 2), (2048, 513, 3),
+                       (2048, 512, 4), (18688, 18688, 4)):
+        gt, gi, gbits = corpus.gather_edge_rows(gN, gK, SEED)
+        gt = [torch.from_numpy(t).to("cuda") for t in gt[:nt]]
+        gi = torch.from_numpy(gi).to("cuda")
+        if gK == 512:
+            gi = torch.cat([gi.new_zeros(1), gi.flatten()])[1:].view(
+                gi.shape)
+        kernel_row(
+            "table_gather", "", "", fused_gather,
+            lambda: fused_gather.table_gather(gt, gi, gbits[:nt]),
+            lambda: fused_gather.table_gather_reference(gt, gi, gbits[:nt]),
+            n_bytes=gi.numel() * i4 * (1 + 2 * nt),
+            n_ops=gi.numel() * (4 + 2 * nt),
+            variant=f"edge rows, {nt} table(s), B={gi.shape[0]}, N={gN}, "
+            f"K={gK}" + (", index off a 16-byte boundary"
+                         if gi.data_ptr() % 16 else ""))
+    # the two-table and one-table shapes against torch.gather again, in
+    # turns, 20 medians each: is the kernel slower by more than the spread?
+    for label, tabs, idx, bits, idx64 in (
+            ("offsets and lengths, 2 tables of 17 bits", pairs, tok,
+             (17, 17), tok64),
+            ("catch-up words, 1 table of 32 bits", [u32], pa, (32,), pa64)):
+        k_ms, l_ms = [], []
+        for _ in range(20):
+            k_ms.append(time_ms(torch, lambda: fused_gather.table_gather(
+                tabs, idx, bits)))
+            l_ms.append(time_ms(torch, lambda: [torch.gather(t, 1, idx64)
+                                                for t in tabs]))
+        # the wrapper's host time a call: where it exceeds the kernel's,
+        # back-to-back calls time the host
+        t = time.perf_counter()
+        for _ in range(200):
+            fused_gather.table_gather(tabs, idx, bits)
+        host_us = (time.perf_counter() - t) / 200 * 1e6
+        torch.cuda.synchronize()
+        retime = {"reps": 20, "ms": statistics.median(k_ms),
+                  "ms_range": [min(k_ms), max(k_ms)],
+                  "library_ms": statistics.median(l_ms),
+                  "library_range": [min(l_ms), max(l_ms)],
+                  "wrapper_host_us": host_us}
+        next(r for r in rows if r["name"] == "table_gather")[
+            "variants"][f"{label}, re-timed"] = retime
+        print(f"kernel table_gather ({label}, re-timed in turns, 20 "
+              f"medians): {retime['ms']:.4f} ms (range {min(k_ms):.4f}-"
+              f"{max(k_ms):.4f}) against torch.gather "
+              f"{retime['library_ms']:.4f} ms (range {min(l_ms):.4f}-"
+              f"{max(l_ms):.4f}); the wrapper's host time {host_us:.1f} us "
+              f"a call; {card}")
 
     # emit_bytes on the records this path makes (its own producer of s0)
     recs = ev.chain_records(u32, matched, off_all, mlen_all, dl,
@@ -1236,8 +1289,9 @@ def main() -> int:
         if callable(n_bytes):              # counted from the outputs
             n_bytes = n_bytes(got)
         ms = time_ms(torch, fn)
+        # plain_reps 0: the plain version checks the kernel, untimed
         plain_ms = time_ms(torch, plain, inner=1 if plain_reps < REPS
-                           else 10, reps=plain_reps)
+                           else 10, reps=plain_reps) if plain_reps else None
         lib_ms = time_ms(torch, library) if library else None
         bound_ms, bound_by = bound(n_bytes, n_ops)
         nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1253,7 +1307,8 @@ def main() -> int:
             row = next(r for r in rows if r["name"] == kname)
             row.setdefault("variants", {})[variant] = nums
         print(f"kernel {kname}" + (f" ({variant})" if variant else "")
-              + f": {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              + f": {ms:.4f} ms (plain "
+              + (f"{plain_ms:.4f} ms" if plain_ms else "not timed") + ", "
               f"bound {bound_ms:.4f} ms by {bound_by}"
               + (f", library {lib_ms:.4f} ms" if lib_ms else "")
               + f"), max abs err {err}"

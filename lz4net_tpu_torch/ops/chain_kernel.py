@@ -3,13 +3,17 @@
 Port of the TPU kernel ``lz4net_tpu/ops/chain_kernel.py: mark_chain``.
 ``g[b, i]`` is the next token position if a token is taken at i; the
 parse's tokens are the orbit of 0.  The CUDA kernel is
-``csrc/chain_kernel.cu`` (its header says what bounds it on the H100 and
-what the design does about that); ``mark_chain_reference`` is its plain
-PyTorch version, a batched walk.
+``csrc/chain_kernel.cu``: a CTA a block finds every position's exit from
+its 32-position segment and 128-position group by warp-wide pointer
+doubling, one warp hops over the group exits (one shared-memory read a
+group the orbit enters, not one a position as the first form's single
+walking thread did), and the worker warps mark each segment from its
+entry; its header says what bounds it on the H100.
+``mark_chain_reference`` is its plain PyTorch version, a batched walk.
 
-Both mark the exact orbit.  The TPU kernel stops its in-segment marking
-after 44 rounds, which covers the encoder's graphs but leaves positions
-unmarked on a graph such as ``g[i] = i + 1``.
+Both mark the exact orbit on every int32 ``g``.  The TPU kernel stops
+its in-segment marking after 44 rounds, which covers the encoder's
+graphs but leaves positions unmarked on a graph such as ``g[i] = i + 1``.
 """
 
 from __future__ import annotations
@@ -18,8 +22,7 @@ import torch
 
 from .. import _build
 
-MAX_D = 13 * 8192    # 96 KB blocks; the kernel keeps 2 bytes a position
-                     # in shared memory
+MAX_D = 13 * 8192    # 96 KB blocks
 
 launches = 0
 
@@ -27,7 +30,7 @@ launches = 0
 def mark_chain(g, D: int):
     """g: [B, D] int32 with g[i] > i and g[i] <= D.  Returns mark [B, D]
     int32, 1 on the orbit of 0 under g.  A step with g[i] <= i ends the
-    walk at i (junk-safe), one past D ends it after i."""
+    walk at i (junk-safe), one to D or past it ends it after i."""
     global launches
     if g.dtype != torch.int32 or g.dim() != 2 or g.shape[1] != D:
         raise TypeError("g must be [B, D] int32")

@@ -12,12 +12,15 @@ module ``lz4net_tpu/ops/fused_gather.py``:
 The TPU has no gather, so its kernels fetch rows with one-hot bf16
 matmuls per 8-bit plane, shuffle lanes and select over row windows.
 Hopper gathers natively: each CUDA kernel in ``csrc/fused_gather.cu``
-reads its entries directly, one thread an element, and reproduces what
-the TPU kernel returns on every index, in range or not (``rowbase_gather``
-alone takes no window parameters: its ``in_band`` says whether the index
-lies in [0, N), and an index outside reads the clamped entry).  Each has
-its plain PyTorch version beside it, ``*_reference``, and its own launch
-counter.
+reads its entries directly and reproduces what the TPU kernel returns on
+every index, in range or not (``rowbase_gather`` alone takes no window
+parameters: its ``in_band`` says whether the index lies in [0, N), and
+an index outside reads the clamped entry).  Three take one thread an
+element; ``table_gather``'s, whose table entries sit mostly in sectors of
+their own, keeps four elements' loads of every table in flight a thread
+over a grid the card holds at once (the file's header says why).  Each
+has its plain PyTorch version beside it, ``*_reference``, and its own
+launch counter.
 """
 
 from __future__ import annotations
@@ -100,6 +103,8 @@ def table_gather(tables, idx, bits):
         raise ValueError("tables must be [B, N], N % 128 == 0, idx [B, K]")
     if idx.device.type == "cpu":
         return table_gather_reference(tables, idx, bits)
+    if idx.numel() > 2**31 - 1 - 128:
+        raise ValueError("the kernel takes at most 2**31 - 129 indices")
     tables = [t.contiguous() for t in tables]
     idx = idx.contiguous()
     outs = [torch.empty_like(idx) for _ in tables]

@@ -208,13 +208,20 @@ def report(title, clocked, plain, parts, run, check_outputs, card,
     live = rows[rows.any(1)]
     cyc = {k: n for k, n in parts.items() if not n.startswith("#")}
     mean = {k: live[:, k].mean() for k in cyc}
-    total = sum(mean.values())
+    # a part named "who: part" is a share of that thread's time, the
+    # others of the CTA's
+    who = {k: n.split(": ")[0] if ": " in n else "" for k, n in cyc.items()}
+    total = {w: sum(mean[k] for k in cyc if who[k] == w)
+             for w in set(who.values())}
     print(f"{title}: equal to the port's; {len(live)} CTAs; cycles a CTA, "
           f"mean (share):")
     for k, n in cyc.items():
-        print(f"  {k + 1}. {n}: {mean[k]:.0f} ({mean[k] / total:.3f})")
-    print(f"  all: {total:.0f} (slowest CTA "
-          f"{live[:, list(cyc)].sum(1).max():.0f})")
+        print(f"  {k + 1}. {n}: {mean[k]:.0f} "
+              f"({mean[k] / total[who[k]]:.3f})")
+    for w, t in sorted(total.items()):
+        ks = [k for k in cyc if who[k] == w]
+        print(f"  all{f' ({w})' if w else ''}: {t:.0f} (slowest CTA "
+              f"{live[:, ks].sum(1).max():.0f})")
     for k, n in parts.items():
         if n.startswith("#"):
             print(f"  {n[1:]} a CTA: mean {live[:, k].mean():.2f}, most "

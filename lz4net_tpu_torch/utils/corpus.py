@@ -806,3 +806,131 @@ def hc_edge_rows(D: int, seed: int = 0):
         nrows.append(nr)
         sticky.append(st)
     return wa, [h.astype(np.int32) for h in hs], sticky, nrows
+
+
+def chain_edge_rows(D: int, seed: int = 0):
+    """Chain graphs that drive ``mark_chain``'s edge cases, D positions each
+    (D a multiple of 1024): (names, g [B, D] int32 numpy).  The orbit of 0
+    under g ends at a position whose step is not forward (g[i] <= i) and
+    after one whose step reaches D or beyond.
+
+    * ``step_1``: g[i] = i + 1, the whole row is the orbit;
+    * ``on_32``, ``short_of_32``: the orbit at every multiple of 32, and
+      one short of each, ending past D and at g = D + 5;
+    * ``on_128_short_1024``, ``short_of_128_on_1024``: jumps that land
+      exactly on and one short of the multiples of 128 and 1024;
+    * ``tile_skips``: jumps of 1025 to 2999 that skip whole tiles of 1024,
+      between runs of short steps;
+    * ``ends_at_d``, ``past_d``, ``int32_max``: the orbit ends in the
+      row's middle with g = D, D + 12345 and 2^31 - 1;
+    * ``negative``: it ends with g = -1;
+    * ``back_at_0``: g[0] = 0; ``back_in_segment``: a step back in the
+      middle of a 32-position segment; ``back_at_tile_end``: a step back
+      at a 1024-position tile's last position;
+    * ``encoder_0`` to ``encoder_2``: graphs as the encoder builds them
+      (matched positions with lengths of at least 4, each stepping to the
+      first match at or after its end, any other to the first match after
+      it).
+
+    Off the orbit every row but ``step_1`` and the encoder's steps ahead
+    by 1 to 39, with one position in 20 holding a value that ends a walk
+    (below 0, at or past D, 2^31 - 1 and -2^31), so the exits of
+    positions the orbit never visits carry those too.
+    """
+    import numpy as np
+
+    if D <= 0 or D % 1024:
+        raise ValueError("D must be a positive multiple of 1024")
+    rng = np.random.default_rng(seed)
+    i = np.arange(D, dtype=np.int64)
+    big = (1 << 31) - 1
+    rows, names = [], []
+
+    def junk():
+        r = i + rng.integers(1, 40, D)
+        ends = rng.random(D) < 0.05
+        r[ends] = rng.choice([-1, -(1 << 31), 0, D, D + 3, big],
+                             int(ends.sum()))
+        return r
+
+    def orbit(name, pos, last):
+        pos = np.unique(np.concatenate([[0], np.asarray(pos, np.int64)]))
+        pos = pos[(pos >= 0) & (pos < D)]
+        r = junk()
+        r[pos[:-1]] = pos[1:]
+        r[pos[-1]] = last
+        names.append(name)
+        rows.append(r)
+
+    names.append("step_1")
+    rows.append(i + 1)
+    k32, k128, k1024 = (np.arange(1, D // m + 1) * m
+                        for m in (32, 128, 1024))
+    orbit("on_32", k32, D)
+    orbit("short_of_32", k32 - 1, D + 5)
+    orbit("on_128_short_1024", np.concatenate([k128, k1024 - 1]), big)
+    orbit("short_of_128_on_1024", np.concatenate([k128 - 1, k1024]), D)
+    pos, p = [], 0
+    while p < D:
+        for _ in range(int(rng.integers(1, 6))):
+            p += int(rng.integers(1, 9))
+            pos.append(p)
+        p += int(rng.integers(1025, 3000))
+        pos.append(p)
+    orbit("tile_skips", pos, D)
+    half = np.cumsum(rng.integers(1, 60, D))
+    half = half[half < D // 2]
+    for name, last in (("ends_at_d", D), ("past_d", D + 12345),
+                       ("int32_max", big), ("negative", -1)):
+        orbit(name, half, last)
+    orbit("back_at_0", [], 0)
+    mid = D // 64 * 32 + 17                 # inside a segment
+    orbit("back_in_segment", np.append(half[half < mid], mid), mid - 3)
+    t_end = D // 2048 * 1024 + 1023
+    orbit("back_at_tile_end", np.concatenate([half[half < t_end], [t_end]]),
+          5)
+    for j in range(3):
+        matched = rng.random(D) < (0.1, 0.2, 0.4)[j]
+        mlen = rng.integers(4, 40, D)
+        nxt = np.where(matched, i, D)
+        nxt = np.minimum.accumulate(nxt[::-1])[::-1]      # first at or after
+        nxt = np.append(nxt, D)
+        end = i + np.where(matched, mlen, 1)
+        g = np.where(matched, nxt[np.minimum(end, D)], nxt[i + 1])
+        names.append(f"encoder_{j}")
+        rows.append(np.maximum(np.where(end >= D, D, g), i + 1))
+    return names, np.stack(rows).astype(np.int32)
+
+
+def gather_edge_rows(N: int, K: int, seed: int = 0):
+    """Operands that drive ``table_gather``'s edge cases: (tables, idx,
+    bits), four tables [5, N] int32 numpy (N a multiple of 128), the index
+    stream idx [5, K] int32 and the tables' value widths; 1-4 tables are
+    the first 1-4 of them.
+
+    The tables hold values of every sign across all 32 bits, so each
+    width's byte mask shows (17 and 24 bits keep 3 bytes, 32 all 4, 1
+    one).  The indices mix, in an order of their own in each row: -1,
+    -128, -129 and -2^31; 0, 127, 128 and N - 1; N, N + 1, N + 127 and
+    N + 128; 2^31 - 1; each side of every 128-lane row boundary; and
+    random values from 3 rows below 0 to 3 rows past N.  Any K works,
+    one not a multiple of 4 and one below 4 too.
+    """
+    import numpy as np
+
+    if N <= 0 or N % 128 or K <= 0:
+        raise ValueError("N must be a positive multiple of 128, K positive")
+    rng = np.random.default_rng(seed)
+    B = 5
+    tables = [rng.integers(-2**31, 2**31, (B, N), np.int64).astype(np.int32)
+              for _ in range(4)]
+    edges = np.array([-1, -128, -129, -2**31, 0, 127, 128, N - 1, N, N + 1,
+                      N + 127, N + 128, 2**31 - 1], np.int64)
+    rows_at = np.arange(128, N, 128)
+    edges = np.concatenate([edges, rows_at - 1, rows_at])
+    idx = rng.integers(-3 * 128, N + 3 * 128, (B, K))
+    for b in range(B):
+        pick = rng.permutation(len(edges))[:K]
+        at = rng.permutation(K)[:len(pick)]
+        idx[b, at] = edges[pick]
+    return tables, idx.astype(np.int32), (17, 32, 1, 24)

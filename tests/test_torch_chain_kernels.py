@@ -7,6 +7,12 @@ Inputs are made from a seed with numpy and go through both; every
 output is an integer and must be equal (tolerance 0), the gathers'
 included on indices outside the table.  ``mark_chain`` marks the exact
 orbit, which the JAX kernel does on the encoder's graphs only.
+
+The edge rows of ``corpus.chain_edge_rows`` and ``corpus.gather_edge_rows``
+go through the plain versions against a plain walk and the TPU kernel's
+formula at several shapes, and through the JAX kernels only at the
+shapes the tests above already compile (B = 3, D = 1024; B = 2,
+N = 2048, K = 512).
 """
 
 import numpy as np
@@ -20,6 +26,7 @@ from lz4net_tpu.ops import chain_kernel as jchain  # noqa: E402
 from lz4net_tpu.ops import fused_gather as jfg  # noqa: E402
 from lz4net_tpu_torch.ops import chain_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import fused_gather  # noqa: E402
+from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 
 def _t(a):
@@ -163,3 +170,65 @@ def test_gathers_refuse_bad_arguments():
         fused_gather.diag_gather(t, t, -1, 4)
     with pytest.raises(TypeError):
         chain_kernel.mark_chain(t.long(), 256)
+
+
+@pytest.mark.parametrize("D, cut", [(1024, 0), (4096, 0), (4096, 3),
+                                    (2048, 1000)])
+def test_mark_chain_edge_rows_match_the_walk(D, cut):
+    """Every row of ``corpus.chain_edge_rows``, also cut to a width that
+    is not a multiple of 32 or 1024 (its steps to the cut positions and
+    past them then end the walk)."""
+    names, g = corpus.chain_edge_rows(D)
+    g = np.ascontiguousarray(g[:, :D - cut])
+    got = chain_kernel.mark_chain(_t(g), D - cut).numpy()
+    want = _orbit_np(g, D - cut)
+    np.testing.assert_array_equal(got, want)
+    sums = dict(zip(names, want.sum(1)))
+    if not cut:
+        assert sums["step_1"] == D and sums["back_at_0"] == 1
+        assert sums["on_32"] == D // 32 and sums["short_of_32"] == D // 32 + 1
+    assert sums["tile_skips"] > 2 and sums["ends_at_d"] == sums["negative"]
+
+
+def test_mark_chain_encoder_edge_rows_match_jax():
+    names, g = corpus.chain_edge_rows(1024)
+    g = g[[names.index(f"encoder_{j}") for j in range(3)]]
+    want = np.asarray(jchain.mark_chain(jnp.asarray(g), 1024))
+    np.testing.assert_array_equal(
+        chain_kernel.mark_chain(_t(g), 1024).numpy(), want)
+    np.testing.assert_array_equal(want, _orbit_np(g, 1024))
+
+
+def _tpu_formula(tables, idx, bits):
+    """The TPU kernel's value at each index: row clamp(idx >> 7, 0,
+    N / 128 - 1), lane idx & 127, the low ceil(bits / 8) bytes."""
+    N = tables[0].shape[1]
+    j = np.clip(idx >> 7, 0, N // 128 - 1) * 128 + (idx & 127)
+    return [np.take_along_axis(t, j, 1).astype(np.int64)
+            & ((1 << 8 * -(-b // 8)) - 1) for t, b in zip(tables, bits)]
+
+
+@pytest.mark.parametrize("N, K", [(128, 1), (128, 3), (128, 5), (256, 7),
+                                  (2048, 513), (18688, 4096)])
+@pytest.mark.parametrize("nt", [1, 2, 3, 4])
+def test_table_gather_edge_rows_match_the_tpu_formula(N, K, nt):
+    tables, idx, bits = corpus.gather_edge_rows(N, K)
+    got = fused_gather.table_gather([_t(t) for t in tables[:nt]], _t(idx),
+                                    bits[:nt])
+    for g, w in zip(got, _tpu_formula(tables[:nt], idx, bits[:nt])):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy().astype(np.int64) & 0xFFFFFFFF,
+                                      w & 0xFFFFFFFF)
+
+
+def test_table_gather_edge_rows_match_jax():
+    """At the shapes and widths the test above compiles."""
+    tables, idx, _ = corpus.gather_edge_rows(2048, 512)
+    tables, idx = [t[:2] for t in tables], idx[:2]
+    assert (idx < 0).any() and (idx >= 2048).any()
+    for tabs, bits in ((tables[:2], (17, 17)), (tables[1:2], (32,))):
+        want = jfg.table_gather(tuple(jnp.asarray(t) for t in tabs),
+                                jnp.asarray(idx), bits)
+        got = fused_gather.table_gather([_t(t) for t in tabs], _t(idx),
+                                        bits)
+        _check_gather(got, want)

@@ -25,7 +25,11 @@ its domain, on rows whose s0 decreases (no fault).
 ``resolve_wavefront``: ``corpus.resolve_edge_rows``, junk rows
 included (``ok`` must match too), at start_chunk 0-3 and Dt = 8192,
 73728 and 262144.  ``hc_tables``: ``corpus.hc_edge_rows`` with 1, 3, 7
-and 8 tables at D = 512 and 106496.
+and 8 tables at D = 512 and 106496.  ``mark_chain``:
+``corpus.chain_edge_rows`` at D = 4096, at a width 3 short of it and at
+the widest block, D = 106496.  ``table_gather``: ``corpus.gather_edge_rows``
+with 1-4 tables, K below 4, not a multiple of 4 and at the chain path's
+S_cap, N = 128, and an index view off a 16-byte boundary.
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -43,10 +47,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lz4net_tpu_torch.models import reference  # noqa: E402
+from lz4net_tpu_torch.ops import chain_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
 from lz4net_tpu_torch.ops import emit_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
+from lz4net_tpu_torch.ops import fused_gather  # noqa: E402
 from lz4net_tpu_torch.ops import hash_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import mlen_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import parse_kernel  # noqa: E402
@@ -430,3 +436,36 @@ def test_hc_tables_edge_rows_on_the_card(cuda, D, nt):
     assert hash_kernel.hc_launches == before + 1
     _equal(got, hash_kernel.hc_tables_reference(wa, hs, sticky[:nt],
                                                 nrows[:nt], D))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, cut", [(4096, 0), (4096, 3), (106496, 0)])
+def test_mark_chain_edge_rows_on_the_card(cuda, D, cut):
+    names, g = corpus.chain_edge_rows(D)
+    g = torch.from_numpy(np.ascontiguousarray(g[:, :D - cut]))
+    before = chain_kernel.launches
+    got = chain_kernel.mark_chain(g.to(cuda), D - cut)
+    assert chain_kernel.launches == before + 1
+    want = chain_kernel.mark_chain_reference(g, D - cut)
+    _equal([got], [want])
+    assert int(want[names.index("step_1")].sum()) == D - cut
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N, K", [(128, 1), (128, 3), (128, 5), (256, 7),
+                                  (2048, 513), (18688, 18688)])
+@pytest.mark.parametrize("nt", [1, 2, 3, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_table_gather_edge_rows_on_the_card(cuda, N, K, nt, offset):
+    """offset 1: the index a view one int past a 16-byte boundary."""
+    tables, idx, bits = corpus.gather_edge_rows(N, K)
+    tables = [torch.from_numpy(t) for t in tables[:nt]]
+    idx = torch.from_numpy(idx)
+    flat = torch.cat([idx.new_zeros(offset), idx.flatten()]).to(cuda)
+    view = flat[offset:].view(idx.shape)
+    assert (view.data_ptr() % 16 != 0) == bool(offset)
+    before = fused_gather.table_launches
+    got = fused_gather.table_gather([t.to(cuda) for t in tables], view,
+                                    bits[:nt])
+    assert fused_gather.table_launches == before + 1
+    _equal(got, fused_gather.table_gather_reference(tables, idx, bits[:nt]))
