@@ -16,9 +16,13 @@
    100 in turn) and on the edge rows (parse_edge_rows as parse_tokens
    marks them, then corpus.token_edge_rows: tied estarts, out_len inside
    a token, tokens longer than a tile) at P = 0 and 8192;
-   resolve_wavefront also with a dictionary prefix of one chunk passed
-   through (start_chunk 1, Dt = 81,920) and on corpus.resolve_edge_rows
-   (junk rows included, ok compared) at start_chunk 0 and 1;
+   records_to_state also behind a full 64 KB window (P = 65,536, Dt =
+   139,264, pre_len 65,536, 0 and 100 in turn); resolve_wavefront also
+   with a dictionary prefix of one chunk passed through (start_chunk 1,
+   Dt = 81,920), behind a 64 KB window (start_chunk 8, Dt = 139,264, one
+   literal in 20 turned into a pointer up to 64 KB back) and on
+   corpus.resolve_edge_rows (junk rows included, ok compared) at
+   start_chunk 0 and 1;
 4. decodes a 16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB,
    compressed by the port's reference compressor, through
    lz4net_tpu_torch.codec.decode_batch on the card; requires every block
@@ -117,7 +121,46 @@
    path's (encode_batch_vectorized) and to decode to its source on the
    host and on the card; prints ms per batch for both paths in turns
    (host clock) and their device passes;
-15. prints one JSON line with the kernels (each with its launches by
+15. the dictionary workload (BASELINE.json's shared-dictionary,
+   small-record configuration): the 16 MB corpus cut into 4096 records
+   of 4 KB, records 0, 256, ..., 3840 concatenated as the 64 KB
+   dictionary, and the 1024 records whose index is 1 mod 4 as the
+   batch: rows of P + 8192 = 73,728 positions; on its first 256 rows,
+   with the window cut to 65,536, 0 and 20,000 bytes, bucket_prev,
+   match_lengths (end_abs = P + len), sequence_records (its first
+   literal run at P) and emit_bytes against their plain versions, and
+   with the whole window mark_chain (checked, not timed: its plain
+   version walks) and table_gather on that match state;
+16. encodes the 1024 records through
+   lz4net_tpu_torch.models.cuda.compress_blocks_fast_dict, fast and at
+   HC level 9; requires for each no host encode, each kernel of its path
+   launched as the path says, the first 16 (fast) or 8 (HC) payloads
+   equal to the CPU path's, the first 16 to decode with
+   models.reference.decompress_block_dict and all on the card, and the
+   HC total no larger than the fast one; prints ms per batch (first and
+   later calls), GB/s of records, the device pass beside that of the
+   same records without a window (the window's share), the peak device
+   memory and the compressed size beside compress_blocks_fast's without
+   the dictionary and, on 8 records, the reference dictionary
+   compressor's;
+17. decodes the fast payloads through
+   lz4net_tpu_torch.models.cuda.decompress_blocks_dict: byte-exact, no
+   host re-decode, each decode kernel launched once; 16 payloads decoded
+   with an all-zero window give the host decoder's bytes or raise where
+   it raises; prints ms per batch and GB/s of records;
+18. decodes the 256 reference-compressed 64 KB blocks through
+   VectorDecoder.decode_batch_unknown with a 96 KB cap (D = 106,496):
+   byte-exact, no host re-decode, a truncated block and a cap one byte
+   short raise CorruptedBlockError; prints ms per batch;
+19. the facade on the card: codec.wrap, wrap_hc and unwrap round-trip a
+   64 KB block, 4 KB of random bytes (stored raw) and an empty buffer;
+   codec.encode_hc(mode="strict") and wrap_hc's payload equal
+   models.reference.compress_block_hc; codec.decode(max_output_length=)
+   and codec.decode(dictionary=) equal the batch paths; and
+   ops.encode_vector.encode_batch_chain in P mode equals the sequence
+   path's bytes on the 1024 records with the chain path's launches (the
+   mark_chain and table_gather gate);
+20. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -136,6 +179,7 @@ import time
 CORPUS_BYTES = 16 << 20
 BLOCK = 64 * 1024
 SEED = 0
+P64 = 65536                    # the prefix of a full 64 KB window
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # The integer work of these kernels has no published peak in NVIDIA's
@@ -979,6 +1023,397 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
     return by_path
 
 
+# launches a batch of each dictionary encode path: (path, level) -> counts
+DICT_PATHS = (
+    ("dict_fast", 0, {"bucket_prev": 1, "hc_tables": 0, "match_lengths": 1,
+                      "sequence_records": 1, "emit_bytes": 1,
+                      "rowbase_gather": 1}),
+    ("dict_hc9", 9, {"bucket_prev": 0, "hc_tables": 0, "match_lengths": 8,
+                     "sequence_records": 1, "emit_bytes": 1,
+                     "rowbase_gather": 1}),
+)
+RECORD = 4096                  # the dictionary workload's record size
+DECODE_KERNELS = ("parse_tokens", "records_to_state", "rowbase_gather",
+                  "resolve_wavefront")
+
+
+def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
+    """Steps 15-19 of the module docstring: the encode kernels in P mode
+    against their plain versions, then dictionary fast and fast-HC encode,
+    dictionary decode, unknown-length decode and the facade.  Returns the
+    launches by path and kernel."""
+    import numpy as np
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import decode_vector as dv
+    from lz4net_tpu_torch.ops import encode_vector as ev
+    from lz4net_tpu_torch.ops import (chain_kernel, emit_kernel,
+                                      fused_gather, hash_kernel, mlen_kernel,
+                                      seq_kernel)
+    from lz4net_tpu_torch.utils import corpus
+
+    # ---- workload: 4 KB records behind a shared 64 KB dictionary -------
+    records = corpus.split_blocks(data, RECORD)
+    dictionary = b"".join(records[0::256])          # 16 records, 64 KB
+    batch = records[1::4]                            # 1024 records
+    lens = [len(r) for r in batch]
+    n_rec = sum(lens)
+    B = len(batch)
+    xn, dln, pln, P, D, O, S_cap = ev.window_rows(batch, dictionary)
+    xd = torch.from_numpy(xn).to("cuda").to(torch.int32)
+    dld = torch.from_numpy(dln).to("cuda")
+    pld = torch.from_numpy(pln).to("cuda")
+    SR = seq_kernel.slot_width(S_cap)
+    print(f"dictionary workload: {B} records of {RECORD} bytes (every "
+          f"4th from 1), a {len(dictionary)}-byte dictionary (records 0, "
+          f"256, ..., 3840); P={P} D={D} O={O} S_cap={S_cap} SR={SR}")
+    if len(dictionary) != P or P != P64 or D != P64 + 8192:
+        fail(f"the dictionary workload's shapes are P={P}, D={D}")
+
+    # ---- per-kernel phase: the fast path's kernels in P mode -----------
+    # the first 256 rows, the window cut to pre_len bytes (65,536, 0 and
+    # 20,000): what the encoder gives each kernel, as variants of its row
+    i4 = 4
+    Bk = 256
+    for L in (P, 0, 20000):
+        xk = xd[:Bk].clone()
+        xk[:, :P - L] = 0
+        dk, plk = dld[:Bk], torch.full_like(dld[:Bk], L)
+        tag = f"P mode, B={Bk}, D={D}, pre_len={L}"
+        u32 = ev._u32(xk)
+        us4 = ev._shift_left(u32, 4)
+        h4, h8 = hash_kernel.hash_bucket(u32), hash_kernel.hash_bucket8(
+            u32, us4)
+        prev = kernel_row(
+            "bucket_prev", "", "", hash_kernel,
+            lambda: hash_kernel.bucket_prev(u32, us4, h4, h8, D),
+            lambda: hash_kernel.bucket_prev_reference(u32, us4, h4, h8, D),
+            n_bytes=5 * Bk * D * i4, n_ops=Bk * D * 30, plain_reps=1,
+            variant=tag)
+        off = torch.arange(D, dtype=torch.int32, device="cuda") - prev
+        dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
+                                     & (off > 4))
+        margs = (xk, u32, prev, torch.zeros_like(prev), dks, P + dk, dk, D,
+                 ev.RCAP)
+        matched, off_all, mlen_all = kernel_row(
+            "match_lengths", "", "", mlen_kernel,
+            lambda: mlen_kernel.match_lengths_fused(*margs),
+            lambda: mlen_kernel.match_lengths_reference(*margs),
+            n_bytes=6 * Bk * D * i4 + Bk * dks.shape[1] * i4 + 2 * Bk * i4,
+            n_ops=Bk * D * 40, plain_reps=3,
+            variant=tag + ", end_abs = P + len")
+        i = torch.arange(D, dtype=torch.int32, device="cuda")
+        matched = matched * ((i >= P) & (off_all <= i - (P - L)))
+        if L == P:
+            # the chain record path's two kernels on the same match
+            # state: the orbit now starts in the window
+            m = matched == 1
+            g = seq_kernel.chain_graph(m, mlen_all, D)
+            mark = kernel_row(
+                "mark_chain", "", "", chain_kernel,
+                lambda: chain_kernel.mark_chain(g, D),
+                lambda: chain_kernel.mark_chain_reference(g, D),
+                n_bytes=lambda got: Bk * D * i4 + int(got.sum()) * i4,
+                n_ops=Bk * D, plain_reps=0, variant=tag)
+            tok = seq_kernel.compact_indices((mark == 1) & m, S_cap, D) \
+                .clamp(0, D - 1)
+            tok64 = tok.long()
+            pairs = [off_all, mlen_all]
+            kernel_row(
+                "table_gather", "", "", fused_gather,
+                lambda: fused_gather.table_gather(pairs, tok, (17, 17)),
+                lambda: fused_gather.table_gather_reference(pairs, tok,
+                                                            (17, 17)),
+                n_bytes=Bk * S_cap * i4 * 5, n_ops=Bk * S_cap * 8,
+                library=lambda: [torch.gather(t, 1, tok64) for t in pairs],
+                variant=tag + ", offsets and lengths, 2 tables of 17 bits")
+            del g, mark, tok, tok64, pairs
+        sargs = (u32, matched, off_all, mlen_all, P + dk, plk, D, S_cap, P,
+                 ev.CU_ROUNDS)
+        seq = kernel_row(
+            "sequence_records", "", "", seq_kernel,
+            lambda: seq_kernel.sequence_records(*sargs),
+            lambda: seq_kernel.sequence_records_reference(*sargs),
+            n_bytes=lambda got: Bk * D * i4 + int(got[5][:, 0].sum()) * i4
+            * (2 + 2 * ev.CU_ROUNDS) + 5 * Bk * SR * i4 + Bk * 8 * i4
+            + 2 * Bk * i4,
+            n_ops=Bk * D * 20, plain_reps=3, variant=tag)
+        if not bool((seq[1][:, 0] == P).all()):
+            fail(f"sequence_records ({tag}): a first literal run does not "
+                 f"start at P")
+        n_live = int((seq[5][:, 1] + 1).sum())
+        eargs = (*seq[:5], seq[5][:, 2].contiguous(), O)
+        kernel_row(
+            "emit_bytes", "", "", emit_kernel,
+            lambda: emit_kernel.emit_bytes(*eargs),
+            lambda: emit_kernel.emit_bytes_reference(*eargs),
+            n_bytes=5 * n_live * i4 + 2 * Bk * O * i4 + Bk * i4,
+            n_ops=Bk * O * 20, variant=tag)
+    del xk, u32, us4, h4, h8, prev, off, matched, off_all, mlen_all, seq
+
+    counted = {row["name"]: row for row in rows}
+
+    def zero_counts():
+        for row in rows:
+            setattr(row["module"], row["counter"], 0)
+
+    def read_counts(names):
+        return {k: getattr(counted[k]["module"], counted[k]["counter"])
+                for k in names}
+
+    def late(call, reps=REPS - 1):
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return walls
+
+    # ---- slice phases: dictionary fast and fast-HC encode ---------------
+    enc = cuda_engine.encoder("cuda")
+    by_path, sizes, payloads = {}, {}, {}
+    # the same records without a dictionary, on the card; the reference
+    # dictionary compressor is scalar Python: 8 records
+    plain_total = sum(map(len, cuda_engine.compress_blocks_fast(
+        batch, device="cuda")))
+    ref8 = sum(len(reference.compress_block_dict(dictionary, r))
+               for r in batch[:8])
+    x0n, dl0n, _, _, D0, O0, S0 = ev.window_rows(batch)
+    x0 = torch.from_numpy(x0n).to("cuda").to(torch.int32)
+    dl0 = torch.from_numpy(dl0n).to("cuda")
+    for path, level, want in DICT_PATHS:
+        def call():
+            return cuda_engine.compress_blocks_fast_dict(
+                batch, dictionary, level=level, device="cuda")
+
+        zero_counts()
+        enc.host_encodes = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counts(want)
+        by_path[path] = launches
+        if enc.host_encodes != 0:
+            fail(f"{path}: {enc.host_encodes} records were encoded on the "
+                 f"host")
+        if launches != want:
+            fail(f"{path}: launches {launches}, the path makes {want}")
+        n_cpu = 16 if level == 0 else 8
+        if got[:n_cpu] != ev.VectorEncoder("cpu").encode_batch(
+                batch[:n_cpu], hc_level=level, dictionary=dictionary):
+            fail(f"{path}: the first {n_cpu} payloads differ from the CPU "
+                 f"path's")
+        bad = [j for j, (p, r) in enumerate(zip(got[:16], batch))
+               if reference.decompress_block_dict(p, dictionary, len(r))
+               != r]
+        if bad:
+            fail(f"{path}: records {bad} do not decode to their source on "
+                 f"the host")
+        if cuda_engine.decompress_blocks_dict(got, lens, dictionary,
+                                              "cuda") != batch:
+            fail(f"{path}: records do not decode to their source on the "
+                 f"card")
+        payloads[path] = got
+        sizes[path] = total = sum(map(len, got))
+        got8 = sum(map(len, got[:8]))
+        walls = late(call)
+        rcap = ev.hc_rcap(level, D)
+        dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
+            xd, dld, D, O, S_cap, rcap, level, None, P, pld),
+            inner=10 if level == 0 else 3)
+        dev0_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
+            x0, dl0, D0, O0, S0, ev.hc_rcap(level, D0), level),
+            inner=10 if level == 0 else 3)
+        wall = statistics.median(walls)
+        print(f"{path} slice (level {level}): {B} records, host_encodes=0, "
+              f"launches {launches}, first {n_cpu} equal the CPU path's, "
+              f"every payload decodes on the card (first 16 on the host "
+              f"too), peak device memory {peak:.2f} GiB; {total} compressed "
+              f"bytes ({total / n_rec:.4f} of the records) against "
+              f"{plain_total} ({plain_total / n_rec:.4f}) in fast mode "
+              f"without the dictionary; first 8 records {got8} bytes "
+              f"against {ref8} from the reference dictionary compressor "
+              f"({got8 / ref8:.4f}); first call {first_ms:.2f} ms, later "
+              + " ".join(f"{w:.2f}" for w in walls)
+              + f"; median {wall:.2f} ms per {B}-record batch, "
+              f"{n_rec / wall / 1e6:.4f} GB/s of records (host clock, end "
+              f"to end); device pass {dev_ms:.3f} ms, "
+              f"{n_rec / dev_ms / 1e6:.3f} GB/s, against {dev0_ms:.3f} ms "
+              f"for the same records without a window (D={D0}): the "
+              f"window's share {1 - dev0_ms / dev_ms:.3f}; {card}")
+        if level == 0:
+            where_the_time_goes(torch, call, "compress_blocks_fast_dict",
+                                n_rec, "of records", card)
+    if sizes["dict_hc9"] > sizes["dict_fast"]:
+        fail(f"dictionary HC level 9 wrote {sizes['dict_hc9']} bytes, more "
+             f"than fast mode's {sizes['dict_fast']}")
+
+    # ---- slice phase: dictionary decode ---------------------------------
+    dec = cuda_engine.decoder("cuda")
+    fast = payloads["dict_fast"]
+
+    def dict_call():
+        return cuda_engine.decompress_blocks_dict(fast, lens, dictionary,
+                                                  "cuda")
+
+    zero_counts()
+    dec.host_decodes = 0
+    t = time.perf_counter()
+    got = dict_call()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts(DECODE_KERNELS)
+    by_path["dict_decode"] = launches
+    if got != batch:
+        fail("dictionary decode: records differ from their source")
+    if dec.host_decodes != 0:
+        fail(f"dictionary decode: {dec.host_decodes} records were "
+             f"re-decoded on the host")
+    if any(n != 1 for n in launches.values()):
+        fail(f"dictionary decode: launches {launches}, one each expected")
+    # a wrong window (zeros): the host decoder's bytes, or its error
+    zeros = bytes(len(dictionary))
+    raised = certified = 0
+    for p, n in zip(fast[:16], lens):
+        try:
+            want = reference.decompress_block_dict(p, zeros, n)
+        except reference.CorruptedBlockError:
+            raised += 1
+            try:
+                cuda_engine.decompress_block_dict(p, zeros, n, "cuda")
+            except reference.CorruptedBlockError:
+                continue
+            fail("a payload decoded with a wrong window did not raise")
+        before = dec.host_decodes
+        if cuda_engine.decompress_block_dict(p, zeros, n, "cuda") != want:
+            fail("a payload decoded with a wrong window differs from the "
+                 "host decoder's bytes")
+        certified += dec.host_decodes == before
+    walls = late(dict_call, REPS)
+    wall = statistics.median(walls)
+    comp, comp_len, out_len, C, Dd = dv.pack_blocks(fast, lens)
+    pre, pre_len, _ = dv.pack_windows(dictionary, B)
+    dargs = (*dv.batch_from_numpy(comp, comp_len, out_len, "cuda"), C, Dd,
+             torch.from_numpy(pre).to("cuda").to(torch.int32),
+             torch.from_numpy(pre_len).to("cuda"))
+    dev_ms = time_ms(torch, lambda: dv.decode_batch_vectorized(*dargs))
+    print(f"dict_decode slice: {B} records byte-exact, host_decodes=0, "
+          f"launches {launches}; 16 payloads with an all-zero window: "
+          f"{raised} raised as the host decoder does, {16 - raised} gave "
+          f"its bytes ({certified} of them certified on the card); first "
+          f"call {first_ms:.2f} ms, later "
+          + " ".join(f"{w:.2f}" for w in walls)
+          + f"; median {wall:.2f} ms per {B}-record batch, "
+          f"{n_rec / wall / 1e6:.4f} GB/s of records (host clock); device "
+          f"pass {dev_ms:.3f} ms (C={C}, Dt={P + Dd}), "
+          f"{n_rec / dev_ms / 1e6:.3f} GB/s; {card}")
+
+    # ---- slice phase: unknown-length decode -----------------------------
+    cap = 96 * 1024
+    blens = [len(b) for b in blocks]
+
+    def unknown_call():
+        return dec.decode_batch_unknown(packed, [cap] * len(packed))
+
+    zero_counts()
+    dec.host_decodes = 0
+    t = time.perf_counter()
+    got = unknown_call()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts(DECODE_KERNELS)
+    by_path["unknown_decode"] = launches
+    if got != blocks:
+        fail("unknown-length decode: blocks differ from their source")
+    if dec.host_decodes != 0:
+        fail(f"unknown-length decode: {dec.host_decodes} blocks were "
+             f"re-decoded on the host")
+    if any(n != 1 for n in launches.values()):
+        fail(f"unknown-length decode: launches {launches}, one each "
+             f"expected")
+    for what, blk, c in (("a truncated block", packed[0][:len(packed[0])
+                                                         // 2], cap),
+                         ("a cap one byte short", packed[0], blens[0] - 1)):
+        try:
+            dec.decode_batch_unknown([blk], [c])
+        except reference.CorruptedBlockError:
+            continue
+        fail(f"unknown-length decode: {what} did not raise")
+    walls = late(unknown_call, REPS)
+    wall = statistics.median(walls)
+    comp, comp_len, _, C, _ = dv.pack_blocks(packed, blens)
+    Dc = -(-(cap + 1) // dv.CH) * dv.CH
+    uargs = (*dv.batch_from_numpy(comp, comp_len, [cap] * len(packed),
+                                  "cuda"), C, Dc)
+    dev_ms = time_ms(torch, lambda: dv.decode_batch_vectorized(*uargs))
+    n_data = sum(blens)
+    print(f"unknown_decode slice: {len(packed)} blocks of 64 KB with a "
+          f"{cap}-byte cap byte-exact, host_decodes=0, launches {launches}; "
+          f"a truncated block and a cap one byte short raise "
+          f"CorruptedBlockError; first call {first_ms:.2f} ms, later "
+          + " ".join(f"{w:.2f}" for w in walls)
+          + f"; median {wall:.2f} ms per batch, "
+          f"{n_data / wall / 1e6:.4f} GB/s decoded (host clock); device "
+          f"pass {dev_ms:.3f} ms (D={Dc}), {n_data / dev_ms / 1e6:.3f} "
+          f"GB/s; {card}")
+
+    # ---- slice phase: the facade -----------------------------------------
+    noise = np.random.default_rng(SEED).integers(0, 256, RECORD,
+                                                 np.uint8).tobytes()
+    ref_hc = reference.compress_block_hc(blocks[0])
+    for src in (blocks[0], noise, b""):
+        for env in (codec.wrap(src, device="cuda"),
+                    codec.wrap_hc(src, device="cuda")):
+            if codec.unwrap(env, device="cuda") != src:
+                fail(f"the envelope of a {len(src)}-byte buffer does not "
+                     f"unwrap to it")
+            if src is noise and env != (len(noise).to_bytes(4, "little")
+                                        * 2 + noise):
+                fail("an incompressible buffer is not stored raw")
+        if src is blocks[0] and codec.wrap_hc(src, device="cuda")[8:] \
+                != ref_hc:
+            fail("wrap_hc's payload differs from the reference HC parse")
+    if codec.encode_hc(blocks[0], device="cuda") != ref_hc:
+        fail("codec.encode_hc(mode='strict') differs from "
+             "reference.compress_block_hc")
+    if codec.decode(packed[0], max_output_length=cap, device="cuda") \
+            != got[0]:
+        fail("codec.decode(max_output_length=) differs from the batch path")
+    if codec.decode(fast[0], lens[0], dictionary=dictionary,
+                    device="cuda") != batch[0]:
+        fail("codec.decode(dictionary=) differs from the batch path")
+    # the chain record path in P mode: the mark_chain and table_gather gate
+    want = CHAIN_PATHS[0][2]
+    zero_counts()
+    chain = ev.encode_batch_chain(xd, dld, D, O, S_cap, ev.RCAP, 0, None,
+                                  P, pld)
+    torch.cuda.synchronize()
+    launches = read_counts(want)
+    by_path["dict_chain"] = launches
+    if launches != want:
+        fail(f"dict_chain: launches {launches}, the path makes {want}")
+    seq = ev.encode_batch_vectorized(xd, dld, D, O, S_cap, ev.RCAP, 0, None,
+                                     P, pld)
+    if any(not torch.equal(a, b) for a, b in zip(chain, seq)) \
+            or not bool(chain[2].all()):
+        fail("dict_chain: the chain record path's bytes differ from the "
+             "sequence path's in P mode")
+    print(f"facade: wrap, wrap_hc and unwrap round-trip a 64 KB block, "
+          f"{RECORD} incompressible bytes (stored raw) and an empty "
+          f"buffer; encode_hc(mode='strict') and wrap_hc's payload equal "
+          f"reference.compress_block_hc ({len(ref_hc)} bytes); "
+          f"decode(max_output_length=) and decode(dictionary=) equal the "
+          f"batch paths; encode_batch_chain in P mode equals the sequence "
+          f"path on the {B} records, launches {launches}; {card}")
+    return by_path
+
+
 def _uint8_rows(torch, rows):
     """rows as a [B, max len] uint8 tensor on the card (zero padded) and
     their lengths as [B] int32."""
@@ -1369,6 +1804,20 @@ def main() -> int:
         + 2 * B * (P8 + Dt) * i4 + B * 8 * i4,
         n_ops=B * C * 30 + B * (P8 + Dt) * 20,
         variant=f"P={P8}, pre_len 0/{P8}/100, Dt={P8 + Dt}")
+    # the 64 KB batch behind a 64 KB window (P = 65,536, Dt = 139,264;
+    # pre_len P, 0 and 100 in turn), as a dictionary decode lays it out
+    pre64 = torch.tensor([(P64, 0, 100)[j % 3] for j in range(B)],
+                         dtype=torch.int32, device="cuda")
+    kernel_row(
+        "records_to_state", "", "", records_kernel,
+        lambda: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64),
+        lambda: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64),
+        n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
+        + 2 * B * (P64 + Dt) * i4 + B * 8 * i4,
+        n_ops=B * C * 30 + B * (P64 + Dt) * 20,
+        variant=f"P={P64}, pre_len {P64}/0/100, Dt={P64 + Dt}")
     # the edge rows: parse_edge_rows as parse_tokens marks them (out_len
     # the decoded length, C for the junk rows), then
     # corpus.token_edge_rows (tied estarts, out_len inside a token, a
@@ -1428,6 +1877,27 @@ def main() -> int:
         lambda: resolve_kernel.resolve_wavefront_reference(T0p, 1),
         n_bytes=B * (P8 + Dt) * i4 * 2 + B, n_ops=B * (P8 + Dt) * 6,
         variant=f"start_chunk=1, P={P8}, Dt={P8 + Dt}")
+    # a 64 KB window (start_chunk 8, Dt = 139,264), one literal in 20 of
+    # the block turned into a pointer up to 64 KB back: into the window
+    # and across chunks
+    rng = np.random.default_rng(SEED + 1)
+    far = torch.from_numpy(rng.random((B, Dt)) < 0.05).to("cuda")
+    back = torch.from_numpy(rng.integers(1, P64 + 1, (B, Dt),
+                                         np.int32)).to("cuda")
+    o64 = P64 + torch.arange(Dt, dtype=torch.int32, device="cuda")
+    body = torch.where(T0 >= dv.VFLAG, T0, T0 + P64)
+    body = torch.where(far & (T0 >= dv.VFLAG), o64 - back, body)
+    T0w = torch.cat([dv.VFLAG | torch.from_numpy(rng.integers(
+        0, 256, (B, P64), np.int32)).to("cuda"), body], 1)
+    del far, back, o64, body
+    kernel_row(
+        "resolve_wavefront", "", "", resolve_kernel,
+        lambda: resolve_kernel.resolve_wavefront(T0w, P64 // dv.CH),
+        lambda: resolve_kernel.resolve_wavefront_reference(T0w,
+                                                           P64 // dv.CH),
+        n_bytes=B * (P64 + Dt) * i4 * 2 + B, n_ops=B * (P64 + Dt) * 6,
+        variant=f"start_chunk={P64 // dv.CH}, P={P64}, Dt={P64 + Dt}, "
+                f"pointers into the window")
     # corpus.resolve_edge_rows: chains through every chunk, pointers to
     # lo - 1, to 0 and into the prefix, a chunk with no terminal, and junk
     # rows (forward pointers, cycles, negative and big words), ok compared
@@ -1501,9 +1971,11 @@ def main() -> int:
     hc_launches = hc_phases(torch, card, kernel_row, rows, blocks,
                             fast_total)
     chain_launches = chain_phases(torch, card, kernel_row, rows, blocks)
+    dict_launches = dict_phases(torch, card, kernel_row, rows, data, blocks,
+                                packed)
     paths = [("decode", launches), ("encode", enc_launches),
              *strict_launches.items(), *hc_launches.items(),
-             *chain_launches.items()]
+             *chain_launches.items(), *dict_launches.items()]
     for row in rows:
         del row["module"], row["counter"]
         by_path = {path: counts[row["name"]] for path, counts in paths

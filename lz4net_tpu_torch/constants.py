@@ -1,7 +1,7 @@
 """LZ4 block-format constants used by the PyTorch/CUDA port.
 
 The port's own copy of the values it needs from the JAX package's
-``lz4net_tpu/constants.py:10-66`` (the format is normatively described by
+``lz4net_tpu/constants.py:10-70`` (the format is normatively described by
 the LZ4 block format description; the fast-compressor tuning mirrors the
 r88/r93 reference so ``models.reference.compress_block`` stays
 bit-identical to the reference parse).
@@ -23,6 +23,9 @@ MAXD_LOG = 16
 MAXD = 1 << MAXD_LOG             # HC chain table size
 MAXD_MASK = MAXD - 1
 MAX_DISTANCE = (1 << MAXD_LOG) - 1   # 65535: maximum (and window) match offset
+# only the last 64 KB of a preset dictionary is reachable (offsets are
+# 16-bit; the closest in-block destination is the block start)
+MAX_DISTANCE_WINDOW = MAX_DISTANCE + 1
 
 # --- fast (greedy) compressor tuning ---------------------------------------
 SKIPSTRENGTH = 6                 # incompressible-skip acceleration exponent
@@ -63,3 +66,7 @@ def hc_level_attempts(level: int) -> int:
 def maximum_output_length(input_length: int) -> int:
     """Worst-case compressed size for a block of ``input_length`` bytes."""
     return input_length + input_length // 255 + 16
+
+
+# --- envelope --------------------------------------------------------------
+WRAP_HEADER_LENGTH = 8           # u32le original length, u32le payload length

@@ -1,10 +1,15 @@
-"""The CUDA engine: known-length block decode, and strict, fast greedy and
-fast-HC block encode on the card.
+"""The CUDA engine: known-length, unknown-length and preset-dictionary
+block decode, and strict, fast greedy and fast-HC block encode, with or
+without a preset dictionary, on the card.
 
 Port of the entry points of ``lz4net_tpu/models/tpu.py``: strict encode
 (``compress_block``, ``compress_blocks``, :66-80), ``compress_blocks_fast``
-(:83-92), ``compress_blocks_hc_fast`` (:117-124) and known-length decode
-(:127-154).  The JAX package makes a decoder or encoder per call; here
+(:83-92), ``compress_blocks_fast_dict`` (:95-103), strict HC
+(``compress_block_hc``, :106-114), ``compress_blocks_hc_fast``
+(:117-124) and decode (:127-195).  Strict HC runs on the host's
+reference HC parser, as the JAX package runs it on its host oracle: no
+device kernel of either package computes the strict HC parse.  The JAX
+package makes a decoder or encoder per call; here
 one vector decoder and one vector encoder per device are kept, so their
 ``host_decodes`` and ``host_encodes`` counts can be read after a run.
 Decode runs the vector decoder, as on the TPU; the sequencer decoder
@@ -17,10 +22,12 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import MAX_NB_ATTEMPTS, hc_level_attempts
 from ..ops.decode_vector import VectorDecoder, resolve_device
 from ..ops.encode_sequencer import SequencerEncoder
 from ..ops.encode_sequencer import compress_block  # noqa: F401 (one block)
 from ..ops.encode_vector import VectorEncoder
+from . import reference
 
 _DECODERS: dict[torch.device, VectorDecoder] = {}
 _ENCODERS: dict[torch.device, VectorEncoder] = {}
@@ -51,6 +58,32 @@ def decompress_blocks(blocks, out_lens, device="cuda"):
     return decoder(device).decode_batch(list(blocks), list(out_lens))
 
 
+def decompress_block_unknown(src: bytes, max_output_length: int,
+                             device="cuda") -> bytes:
+    """Unknown-output-length decode of one block on the card: the device
+    certifies the hardened decoder's invariants, and a block it cannot
+    certify is re-decoded by the host's hardened decoder, which raises
+    the reference's errors for malformed input."""
+    return decoder(device).decode_batch_unknown([bytes(src)],
+                                                [max_output_length])[0]
+
+
+def decompress_block_dict(src: bytes, dictionary: bytes, output_length: int,
+                          device="cuda") -> bytes:
+    """Known-length decode of one block with a preset dictionary, on the
+    card: the window rides a prefix of the output domain."""
+    return decoder(device).decode_batch([bytes(src)], [output_length],
+                                        dictionary=dictionary)[0]
+
+
+def decompress_blocks_dict(blocks, out_lens, dictionary: bytes,
+                           device="cuda"):
+    """Batched preset-dictionary decode, one device pass for the batch
+    (one shared dictionary)."""
+    return decoder(device).decode_batch(list(blocks), list(out_lens),
+                                        dictionary=dictionary)
+
+
 def encoder(device="cuda") -> VectorEncoder:
     """The fast and fast-HC encoder serving ``device``."""
     return _kept(_ENCODERS, VectorEncoder, device)
@@ -74,6 +107,31 @@ def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):
     comes back as b"".
     """
     return encoder(device).encode_batch(list(blocks), dst_maxlens)
+
+
+def compress_blocks_fast_dict(blocks, dictionary, dst_maxlens=None,
+                              level: int = 0, device="cuda"):
+    """Batched fast (``level`` 0) or fast-HC (1-9) encode against a preset
+    dictionary, one device pass for the batch: the dictionary's last
+    64 KB precede every block, and matches reach into it.  The payloads
+    are byte-identical to the JAX vector encoder's in the same mode and
+    decode with the same dictionary."""
+    return encoder(device).encode_batch(list(blocks), dst_maxlens,
+                                        hc_level=level,
+                                        dictionary=dictionary)
+
+
+def compress_block_hc(src: bytes, dst_maxlen: int | None = None,
+                      level: int = 9, device="cuda") -> bytes:
+    """Strict HC encode: the reference HC parse (level 9 the reference's
+    256-attempt chain walk, lower levels fewer attempts), b"" when longer
+    than ``dst_maxlen``.  It runs on the host's reference compressor, as
+    the JAX package's strict HC runs on its host oracle; the device's HC
+    is ``compress_blocks_hc_fast``.  ``device`` is checked as every entry
+    point checks it."""
+    resolve_device(device)
+    attempts = MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
+    return reference.compress_block_hc(bytes(src), dst_maxlen, attempts)
 
 
 def compress_blocks_hc_fast(blocks, dst_maxlens=None, level: int = 9,

@@ -11,7 +11,16 @@ needs:
   input;
 * ``compress_block_hc`` (:725 there, with ``_HcState`` and ``_hc_emit``),
   the r93 lazy two-ahead HC parser; the fast-HC encoder sends the blocks
-  the device flags to it.
+  the device flags to it, and strict HC encode runs on it;
+* the preset-dictionary codecs ``compress_block_dict`` (:248 there) and
+  ``compress_block_hc_dict`` (:368), which strict dictionary encode runs
+  on and to which the dictionary encoder sends the blocks the device
+  flags, and ``decompress_block_dict`` (:380), which re-decodes the
+  dictionary blocks the device cannot certify;
+* ``decompress_block_unknown`` (:526 there), the hardened
+  unknown-output-length decoder: the unknown-length path re-decodes
+  with it every block the device cannot certify, and it raises the
+  reference's errors for malformed input.
 
 It is scalar Python on purpose: clarity and bit-exactness over speed.
 """
@@ -236,6 +245,122 @@ def compress_block(src, dst_maxlen: int | None = None) -> bytes:
     return bytes(dst)
 
 
+def compress_block_dict(dictionary: bytes, data: bytes,
+                        dst_maxlen: int | None = None) -> bytes:
+    """Greedy-compress ``data`` with a preset dictionary window.
+
+    Our extension over the reference vintage (r88/r93 has no dictionary
+    API): the dictionary bytes logically precede the block, matches may
+    reach back across the boundary within the 64 KB window, and the
+    output covers only ``data``.
+    """
+    dictionary = bytes(dictionary)
+    data = bytes(data)
+    if not data:
+        return b""
+    if not dictionary:
+        return compress_block(data, dst_maxlen)
+    if dst_maxlen is None:
+        dst_maxlen = maximum_output_length(len(data))
+
+    src = dictionary + data
+    data_start = len(dictionary)
+    n = len(src)
+    adjust = HASH_ADJUST
+    table = array("i", bytes(4 * HASH_TABLESIZE))
+    for i in range(0, data_start - 3):
+        table[_hash(src, i, adjust)] = i
+
+    dst = bytearray()
+    mflimit = n - MFLIMIT
+    cap = n - LASTLITERALS
+    dst_last1 = dst_maxlen - (1 + LASTLITERALS)
+    dst_last3 = dst_maxlen - (2 + 1 + LASTLITERALS)
+    anchor = data_start
+
+    if n - data_start >= MINLENGTH:
+        p = data_start
+        h_fwd = _hash(src, p, adjust)
+        while True:
+            attempts = (1 << SKIPSTRENGTH) + 3
+            p_fwd = p
+            while True:
+                h = h_fwd
+                step = attempts >> SKIPSTRENGTH
+                attempts += 1
+                p = p_fwd
+                p_fwd = p + step
+                if p_fwd > mflimit:
+                    p = None
+                    break
+                h_fwd = _hash(src, p_fwd, adjust)
+                ref = table[h]
+                table[h] = p
+                if ref >= p - MAX_DISTANCE and ref < p and _eq4(src, ref, p):
+                    break
+            if p is None:
+                break
+
+            while p > anchor and ref > 0 and src[p - 1] == src[ref - 1]:
+                p -= 1
+                ref -= 1
+
+            lit_len = p - anchor
+            token_pos = len(dst)
+            dst.append(0)
+            if len(dst) + lit_len + (lit_len >> 8) > dst_last3:
+                return b""
+            _emit_literal_run(dst, token_pos, lit_len, src, anchor)
+
+            while True:
+                offset = p - ref
+                dst.append(offset & 0xFF)
+                dst.append(offset >> 8)
+                p += MINMATCH
+                ref += MINMATCH
+                anchor = p
+                p += _match_extension(src, p, ref, cap)
+                mlen = p - anchor
+                if len(dst) + (mlen >> 8) > dst_last1:
+                    return b""
+                _emit_match_length(dst, token_pos, mlen)
+                if p > mflimit:
+                    anchor = p
+                    p = None
+                    break
+                table[_hash(src, p - 2, adjust)] = p - 2
+                h = _hash(src, p, adjust)
+                ref = table[h]
+                table[h] = p
+                if ref > p - (MAX_DISTANCE + 1) and ref < p \
+                        and _eq4(src, ref, p):
+                    token_pos = len(dst)
+                    dst.append(0)
+                    continue
+                anchor = p
+                p += 1
+                h_fwd = _hash(src, p, adjust)
+                break
+            if p is None:
+                break
+
+    last_run = n - anchor
+    if len(dst) + last_run + 1 + (last_run + 255 - RUN_MASK) // 255 \
+            > dst_maxlen:
+        return b""
+    if last_run >= RUN_MASK:
+        dst.append(RUN_MASK << ML_BITS)
+        rem = last_run - RUN_MASK
+        while rem > 254:
+            dst.append(255)
+            rem -= 255
+        dst.append(rem)
+    else:
+        dst.append(last_run << ML_BITS)
+    dst += src[anchor:n]
+    return bytes(dst)
+
+
 def _copy_match(dst: bytearray, ref: int, mlen: int) -> None:
     """Append ``mlen`` bytes starting at dst[ref], honouring the LZ4
     overlapping-match semantics (offset < length replicates the pattern)."""
@@ -312,6 +437,137 @@ def decompress_block(src, output_length: int) -> bytes:
 
     if len(dst) != output_length:
         raise CorruptedBlockError("decoded length mismatch")
+    return bytes(dst)
+
+
+def decompress_block_dict(src, dictionary: bytes, output_length: int) -> bytes:
+    """Known-length decode with a preset dictionary: matches may reference
+    into the dictionary bytes that logically precede the block."""
+    dictionary = bytes(dictionary)
+    if not dictionary:
+        return decompress_block(src, output_length)
+    src = bytes(src)
+    dict_len = len(dictionary)
+    dst = bytearray(dictionary)
+    sp = 0
+    dst_end = dict_len + output_length
+    dst_copylen = dst_end - COPYLENGTH
+    dst_lastlits = dst_end - LASTLITERALS
+
+    try:
+        while True:
+            token = src[sp]
+            sp += 1
+            length = token >> ML_BITS
+            if length == RUN_MASK:
+                while True:
+                    b = src[sp]
+                    sp += 1
+                    length += b
+                    if b != 255:
+                        break
+            lit_end = len(dst) + length
+            if lit_end > dst_copylen:
+                if lit_end != dst_end:
+                    raise CorruptedBlockError("literal run overruns block end")
+                if sp + length > len(src):
+                    raise CorruptedBlockError("literal run overruns input")
+                dst += src[sp:sp + length]
+                sp += length
+                break
+            dst += src[sp:sp + length]
+            sp += length
+
+            offset = src[sp] | (src[sp + 1] << 8)
+            sp += 2
+            ref = len(dst) - offset
+            if ref < 0 or offset == 0:
+                raise CorruptedBlockError("match offset outside window")
+            mlen = token & ML_MASK
+            if mlen == ML_MASK:
+                while src[sp] == 255:
+                    mlen += 255
+                    sp += 1
+                mlen += src[sp]
+                sp += 1
+            mlen += MINMATCH
+            if len(dst) + mlen > dst_lastlits:
+                raise CorruptedBlockError("match extends into last-5 zone")
+            _copy_match(dst, ref, mlen)
+    except IndexError as exc:
+        raise CorruptedBlockError("truncated input") from exc
+
+    if len(dst) != dst_end:
+        raise CorruptedBlockError("decoded length mismatch")
+    return bytes(dst[dict_len:])
+
+
+def decompress_block_unknown(src, max_output_length: int) -> bytes:
+    """Unknown-output-length decode — the hardened, fully bounds-checked
+    variant (reference `LZ4_uncompress_unknownOutputSize`,
+    `Safe64.Dirty.cs:665-798`).  Consumes the whole input and returns the
+    decoded bytes (up to ``max_output_length``)."""
+    src = bytes(src)
+    src_end = len(src)
+    if src_end == 0:
+        raise CorruptedBlockError("empty input")
+
+    dst = bytearray()
+    sp = 0
+    dst_end = max_output_length
+    dst_mflimit = dst_end - MFLIMIT
+    dst_lastlits = dst_end - LASTLITERALS
+    src_last3 = src_end - (2 + 1 + LASTLITERALS)
+    src_last1 = src_end - (LASTLITERALS + 1)
+
+    try:
+        while True:
+            token = src[sp]
+            sp += 1
+
+            length = token >> ML_BITS
+            if length == RUN_MASK:
+                b = 255
+                while sp < src_end and b == 255:
+                    b = src[sp]
+                    sp += 1
+                    length += b
+
+            lit_end = len(dst) + length
+            if lit_end > dst_mflimit or sp + length > src_last3:
+                if lit_end > dst_end:
+                    raise CorruptedBlockError("output overflow")
+                if sp + length != src_end:
+                    raise CorruptedBlockError(
+                        "input not fully consumed at terminal run")
+                dst += src[sp:sp + length]
+                break
+            dst += src[sp:sp + length]
+            sp += length
+
+            offset = src[sp] | (src[sp + 1] << 8)
+            sp += 2
+            ref = len(dst) - offset
+            if ref < 0 or offset == 0:
+                raise CorruptedBlockError("match offset outside block")
+
+            mlen = token & ML_MASK
+            if mlen == ML_MASK:
+                while sp < src_last1:
+                    b = src[sp]
+                    sp += 1
+                    mlen += b
+                    if b != 255:
+                        break
+            mlen += MINMATCH
+
+            if len(dst) + mlen > dst_lastlits:
+                raise CorruptedBlockError(
+                    "match extends into last-5-literals zone")
+            _copy_match(dst, ref, mlen)
+    except IndexError as exc:
+        raise CorruptedBlockError("truncated input") from exc
+
     return bytes(dst)
 
 
@@ -596,3 +852,15 @@ def compress_block_hc(src, dst_maxlen: int | None = None,
     dst += src[anchor:n]
 
     return bytes(dst)
+
+
+def compress_block_hc_dict(dictionary: bytes, data: bytes,
+                           dst_maxlen: int | None = None,
+                           attempts: int = MAX_NB_ATTEMPTS) -> bytes:
+    """HC compression with a preset dictionary (see compress_block_dict)."""
+    dictionary = bytes(dictionary)
+    data = bytes(data)
+    if not dictionary:
+        return compress_block_hc(data, dst_maxlen, attempts)
+    return compress_block_hc(dictionary + data, dst_maxlen, attempts,
+                             data_start=len(dictionary))

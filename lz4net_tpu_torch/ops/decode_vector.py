@@ -1,9 +1,11 @@
 """Batched known-length decode of independent LZ4 blocks on the card.
 
 Port of the fused branch of ``lz4net_tpu/ops/decode_vector.py``
-(``decode_batch_vectorized(fused=True)``, :304-374) and of
-``VectorDecoder.decode_batch`` for blocks of at most 96 KB.  Four kernels
-carry it, each with its plain PyTorch version beside it:
+(``decode_batch_vectorized(fused=True)``, :304-374), with its preset-
+dictionary prefix, and of ``VectorDecoder``'s known-length, dictionary
+(``decode_batch``, :706-785) and unknown-length (``decode_batch_unknown``,
+:653-703) decode for blocks of at most 96 KB.  Four kernels carry it,
+each with its plain PyTorch version beside it:
 
 1. ``parse_kernel.parse_tokens``: compressed bytes -> token marks;
 2. ``records_kernel.records_to_state``: marks -> per-byte state words and
@@ -16,6 +18,13 @@ and its second, dense-caps pass serve nothing here: one pass decodes
 every block, and a block the device cannot certify is re-decoded by the
 host oracle (``models.reference``), which raises ``CorruptedBlockError``
 for malformed input.  ``VectorDecoder.host_decodes`` counts those blocks.
+
+A preset dictionary rides a prefix of P positions (a multiple of 8192)
+in front of each row's output domain: the window, cut to its last 64 KB,
+lies right-aligned below P as resolved bytes, ``records_to_state``
+places the first token at P and checks every match against the window's
+true start (P - pre_len), and ``resolve_wavefront`` passes the P / 8192
+prefix chunks through.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import MAX_DISTANCE_WINDOW
 from ..models import reference
 from .fused_gather import rowbase_gather
 from .parse_kernel import parse_tokens
@@ -79,24 +89,54 @@ def pack_blocks(blocks, out_lens):
     return comp, comp_len, out_len, C, D
 
 
-def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int):
+def pack_windows(dictionary, B: int):
+    """The prefix rows of ``_device_pass`` (decode_vector.py:730-747
+    there): one shared window (bytes) or one a row (a list of B), each
+    cut to its last 64 KB and right-aligned in P, the longest window
+    rounded up to a multiple of 8192.  Returns (pre [B, P] uint8,
+    pre_len [B] int32, P) as numpy arrays and an int."""
+    if isinstance(dictionary, (bytes, bytearray, memoryview)):
+        windows = [bytes(dictionary)] * B
+    else:
+        windows = [bytes(w or b"") for w in dictionary]
+        if len(windows) != B:
+            raise ValueError(f"{len(windows)} windows for {B} blocks")
+    windows = [w[-MAX_DISTANCE_WINDOW:] for w in windows]
+    P = _cdiv(max(max(map(len, windows)), 1), CH) * CH
+    pre = np.zeros((B, P), np.uint8)
+    for i, w in enumerate(windows):
+        if w:
+            pre[i, P - len(w):] = np.frombuffer(w, np.uint8)
+    return pre, np.array([len(w) for w in windows], np.int32), P
+
+
+def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int,
+                            pre=None, pre_len=None):
     """Decode a batch of independent known-length blocks.
 
     comp: [B, C] int32 bytes (zero padded), comp_len/out_len: [B] int32,
-    C % 4096 == 0, D % 8192 == 0.  Returns (out [B, D] int32 bytes,
-    total_out, ok, strict, consumed, needed), each [B]: the certificate
-    of ``lz4net_tpu.ops.decode_vector.decode_batch_vectorized``.
+    C % 4096 == 0, D % 8192 == 0.  ``pre`` [B, P] int32 bytes (P % 8192
+    == 0) is an optional preset-dictionary prefix that precedes the
+    output, each row's window right-aligned at P, and ``pre_len`` [B]
+    int32 its true length.  Returns (out [B, D] int32 bytes, total_out,
+    ok, strict, consumed, needed), each [B]: the certificate of
+    ``lz4net_tpu.ops.decode_vector.decode_batch_vectorized``, whose
+    ``needed`` is the decoded size the parse implies, independent of
+    ``out_len`` (the unknown-length path's return value).
     """
-    if D % CH or D > BIASD:
-        raise ValueError(f"D must be a multiple of {CH} and <= {BIASD}")
-    # no dictionary prefix in this slice: P = 0, pre_len = 0, start_chunk 0
-    pre_len = torch.zeros_like(comp_len)
-    live_o = torch.arange(D, dtype=torch.int32,
-                          device=comp.device)[None, :] < out_len[:, None]
+    P = 0 if pre is None else pre.shape[1]
+    Dt = P + D
+    if D % CH or P % CH or Dt > BIASD:
+        raise ValueError(f"D and P must be multiples of {CH}, P + D <= "
+                         f"{BIASD}")
+    if pre_len is None:
+        pre_len = torch.zeros_like(comp_len)
+    o = torch.arange(Dt, dtype=torch.int32, device=comp.device)
+    live_o = o[None, :] < P + out_len[:, None]
 
     mark, lit_len, mlen, pmiss = parse_tokens(comp, comp_len, C)
     t0m, cidx, stats = records_to_state(comp, mark, lit_len, mlen, comp_len,
-                                        out_len, pre_len, C, D, 0)
+                                        out_len, pre_len, C, Dt, P)
     total_out = stats[:, 1]
     strict = stats[:, 2] != 0
     consumed = stats[:, 3]
@@ -109,15 +149,18 @@ def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int):
     vals0, band_l = rowbase_gather(comp, lit_idx)
     lit_miss = (~band_l & is_lit_o & live_o).any(1)
     T0 = torch.where(is_lit_o, VFLAG | (vals0 & 0xFF), t0m)
-    out, res_ok = resolve_wavefront(T0, 0)
-    out = out * live_o
+    if P:
+        T0[:, :P] = VFLAG | pre
+    out, res_ok = resolve_wavefront(T0, P // CH)
+    out = out[:, P:] * live_o[:, P:]
     ok = ~rk_miss & ~lit_miss & res_ok & ~pmiss
     return out, total_out, ok, strict, consumed, needed
 
 
 class VectorDecoder:
-    """Known-length batch decode through the four kernels, one device
-    pass per batch; uncertified blocks go to the host oracle."""
+    """Known-length, dictionary and unknown-length batch decode through
+    the four kernels, one device pass per batch; uncertified blocks go
+    to the host oracle."""
 
     MAX_BLOCK = 96 * 1024
 
@@ -125,7 +168,26 @@ class VectorDecoder:
         self.device = resolve_device(device)
         self.host_decodes = 0
 
-    def decode_batch(self, blocks, out_lens):
+    def _pass(self, blocks, out_lens, dictionary=None):
+        """One device pass: (out [B, D] uint8, total, ok, strict, needed)
+        as numpy arrays."""
+        comp, comp_len, out_len, C, D = pack_blocks(blocks, out_lens)
+        dev = batch_from_numpy(comp, comp_len, out_len, self.device)
+        pre = pre_len = None
+        if dictionary:
+            pre, pre_len, _P = pack_windows(dictionary, len(blocks))
+            pre = torch.from_numpy(pre).to(self.device).to(torch.int32)
+            pre_len = torch.from_numpy(pre_len).to(self.device)
+        out, total, ok, strict, _consumed, needed = \
+            decode_batch_vectorized(*dev, C, D, pre, pre_len)
+        # fetch bytes, not words
+        return (out.to(torch.uint8).cpu().numpy(), total.cpu().numpy(),
+                ok.cpu().numpy(), strict.cpu().numpy(), needed.cpu().numpy())
+
+    def decode_batch(self, blocks, out_lens, dictionary=None):
+        """The decoded blocks of known lengths ``out_lens``; with
+        ``dictionary`` (one window shared by the batch, or a list of one
+        window a block) matches may reach back into the window."""
         blocks = [bytes(b) for b in blocks]
         out_lens = list(out_lens)
         if not blocks:
@@ -136,14 +198,10 @@ class VectorDecoder:
             raise NotImplementedError(
                 f"blocks over {self.MAX_BLOCK} bytes (indices {big[:8]}) "
                 "are not ported yet: ROADMAP.md queue A, item 4")
-        comp, comp_len, out_len, C, D = pack_blocks(blocks, out_lens)
-        dev = batch_from_numpy(comp, comp_len, out_len, self.device)
-        out, total, ok, strict, _consumed, needed = \
-            decode_batch_vectorized(*dev, C, D)
-        # fetch bytes, not words
-        out = out.to(torch.uint8).cpu().numpy()
-        total, ok = total.cpu().numpy(), ok.cpu().numpy()
-        strict, needed = strict.cpu().numpy(), needed.cpu().numpy()
+        out, total, ok, strict, needed = self._pass(blocks, out_lens,
+                                                    dictionary)
+        if isinstance(dictionary, (bytes, bytearray, memoryview)):
+            dictionary = [dictionary] * len(blocks)
         results = []
         # Accept device output only under full strict certification (the
         # hardened-decoder invariants + exact length match), exactly the
@@ -153,7 +211,42 @@ class VectorDecoder:
             if (not bool(ok[i]) or int(total[i]) != n
                     or not bool(strict[i]) or int(needed[i]) != n):
                 self.host_decodes += 1
-                results.append(reference.decompress_block(blocks[i], n))
+                results.append(
+                    reference.decompress_block_dict(blocks[i],
+                                                    dictionary[i], n)
+                    if dictionary else
+                    reference.decompress_block(blocks[i], n))
             else:
                 results.append(out[i, :n].tobytes())
+        return results
+
+    def decode_batch_unknown(self, blocks, max_out_lens):
+        """Unknown-output-length decode: each block's decoded bytes, at
+        most its ``max_out_lens`` entry.  One device pass with the caps as
+        output lengths; a block is accepted only when the hardened
+        decoder's invariants hold and the exact size the parse implies
+        (``needed``) was decoded whole within its cap
+        (decode_vector.py:694-700 there).  Every other block, and those
+        the JAX package keeps off its device (empty, or a block or cap
+        over 96 KB), is re-decoded by the host's hardened decoder, which
+        raises the reference's errors for malformed input."""
+        blocks = [bytes(b) for b in blocks]
+        caps = list(max_out_lens)
+        results = [None] * len(blocks)
+        on_device = [i for i, (b, n) in enumerate(zip(blocks, caps))
+                     if 0 < len(b) <= self.MAX_BLOCK
+                     and n <= self.MAX_BLOCK]
+        if on_device:
+            out, total, ok, strict, needed = self._pass(
+                [blocks[i] for i in on_device], [caps[i] for i in on_device])
+            for j, i in enumerate(on_device):
+                n = int(needed[j])
+                if (bool(ok[j]) and bool(strict[j]) and n == int(total[j])
+                        and n <= caps[i]):
+                    results[i] = out[j, :n].tobytes()
+        for i, r in enumerate(results):
+            if r is None:
+                self.host_decodes += 1
+                results[i] = reference.decompress_block_unknown(blocks[i],
+                                                                caps[i])
         return results

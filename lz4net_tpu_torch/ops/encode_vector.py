@@ -1,11 +1,12 @@
 """Batched fast and fast-HC encode of independent LZ4 blocks on the card.
 
 Port of ``lz4net_tpu/ops/encode_vector.py``: ``encode_batch_vectorized``
-(``fused=True``) without a dictionary, for ``hc_level`` 0 (fast greedy,
-:499-548 and :759-783 there) and 1-9 (fast-HC, the HC branch :507-742),
-and ``VectorEncoder.encode_batch`` for blocks of at most 96 KB.  Five
-kernels carry it, each with its plain PyTorch version beside it, and a
-sixth serves the literal bytes:
+(``fused=True``) for ``hc_level`` 0 (fast greedy, :499-548 and :759-783
+there) and 1-9 (fast-HC, the HC branch :507-742), with or without a
+preset dictionary (P mode, :477-485, :744-749), and
+``VectorEncoder.encode_batch`` for blocks of at most 96 KB.  Five kernels
+carry it, each with its plain PyTorch version beside it, and a sixth
+serves the literal bytes:
 
 1. ``hash_kernel.bucket_prev``: each position's match candidate (fast
    mode, and the suffix and hash tiers of HC);
@@ -40,10 +41,20 @@ every token and record field through ``fused_gather.table_gather``.  It
 gives the same bytes; no entry point selects it, and callers that want
 it call it directly.
 
+In P mode a row holds the dictionary's last 64 KB right-aligned in its
+first P positions (a multiple of 8192) and the block from P on:
+candidates reach into the window, tokens start at P or later, no match
+reaches below the window's start (P - pre_len), and the format's end
+rules count from the block's end ``P + data_len``.  A row is P + the
+block wide, so with a full 64 KB window the kernels' width
+(``seq_kernel.MAX_D`` = ``mlen_kernel.MAX_D`` = 106,496) takes blocks of
+at most 40,959 bytes; wider rows raise (ROADMAP.md queue A, item 7b).
+
 The output is the JAX vector encoder's byte string exactly: format-valid
 LZ4 that any decoder reads, not the reference compressor's parse.  A
 block the device flags goes to the host compressor
-(``models.reference.compress_block``, or ``compress_block_hc`` for HC);
+(``models.reference.compress_block``, or ``compress_block_hc`` for HC,
+and their ``_dict`` forms with a dictionary);
 ``VectorEncoder.host_encodes`` counts those blocks.
 """
 
@@ -52,8 +63,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
-                         MINMATCH, maximum_output_length)
+from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
+                         MFLIMIT, MINLENGTH, MINMATCH,
+                         maximum_output_length)
 from ..models import reference
 from .decode_vector import CH, _cdiv, resolve_device
 from .chain_kernel import mark_chain
@@ -64,7 +76,7 @@ from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
 from .hash_kernel import shift_left as _shift_left
 from .mlen_kernel import match_lengths_fused, run_lengths
 from .mlen_kernel import words as _u32
-from .seq_kernel import parse_records, sequence_records
+from .seq_kernel import MAX_D, parse_records, sequence_records
 
 LANE = 128
 TOP_OFFSETS = 8      # dominant offsets given exact unbounded lengths
@@ -263,15 +275,17 @@ def _byte_runs(x):
     return run_fwd, (run_fwd >= MINMATCH) & (x != prev_byte)
 
 
-def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
-              rcap, hc_level, hc_mode):
+def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, end_abs,
+              data_len, D, rcap, hc_level, hc_mode):
     """The HC branch of ``_encode_batch_traced`` there (:550-736): more
     candidate tiers, each dispatched to ``match_lengths`` and taken where
     it gives a longer match, analytic byte-run matches, and the lazy
-    parse from level 4.  Returns (matched, off, mlen)."""
+    parse from level 4.  The end rules count from ``end_abs`` (P +
+    data_len), the shortest-block rule from ``data_len``.  Returns
+    (matched, off, mlen)."""
     matched, off_all, mlen_all = state
     i = torch.arange(D, dtype=torch.int32, device=x.device)
-    end_abs = data_len[:, None]
+    end = end_abs[:, None]
     run_fwd, is_rs = _byte_runs(x)
 
     def in_w(c):
@@ -281,10 +295,9 @@ def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
         """An analytic run match (candidate, length lower bound), within
         the format's end rules, where it is longer."""
         nonlocal matched, off_all, mlen_all
-        ml = torch.minimum(ml_bound,
-                           (end_abs - LASTLITERALS - i).clamp(min=0))
+        ml = torch.minimum(ml_bound, (end - LASTLITERALS - i).clamp(min=0))
         ok = is_rs & in_w(cand) & (ml >= MINMATCH) \
-            & (i <= end_abs - MFLIMIT) & (end_abs >= MINLENGTH)
+            & (i <= end - MFLIMIT) & (data_len[:, None] >= MINLENGTH)
         better = ok & (ml > mlen_all)
         matched = matched | better
         off_all = torch.where(better, i - cand, off_all)
@@ -342,7 +355,7 @@ def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
         # the "first 8 bytes verified" claim follows the candidate used
         claim = (ok_t & verified8) | (~ok_t & m8)
         m_t, off_t, ml_t = _match_lengths_dispatch(
-            x, u32, torch.where(ok_t, prev_t, prev), claim, data_len,
+            x, u32, torch.where(ok_t, prev_t, prev), claim, end_abs,
             data_len, D, rcap, HC_TOP_OFFSETS, HC_SUB_STEP)
         better = m_t & ok_t & (ml_t > mlen_all)
         matched = matched | better
@@ -366,9 +379,11 @@ def _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state, data_len, D,
 
 
 def _match_stage(x, data_len, D: int, rcap: int, hc_level: int,
-                 hc_tiers: str | None):
-    """E1-E2: per-position (matched, off, mlen) and the u32 words.
-    Returns (u32, matched [B, D] int32 0/1, off_all, mlen_all)."""
+                 hc_tiers: str | None, P: int = 0, pre_len=None):
+    """E1-E2: per-position (matched, off, mlen) and the u32 words, in P
+    mode masked to tokens at or after P whose match stays in the window
+    (:744-749 there).  Returns (u32, matched [B, D] int32 0/1, off_all,
+    mlen_all)."""
     if hc_tiers not in (None,) + HC_TIERS:
         raise ValueError(f"hc_tiers must be one of {HC_TIERS} or None")
     hc_mode = hc_tiers or ("sort" if hc_level >= 8 else "suffix")
@@ -386,12 +401,16 @@ def _match_stage(x, data_len, D: int, rcap: int, hc_level: int,
         prev8 = _prev_occurrence((u32, u32s4))
         m8 = (prev8 >= 0) & (i - prev8 <= MAX_DISTANCE)
         prev = torch.where(m8, prev8, prev4)
-    state = _match_lengths_dispatch(x, u32, prev, m8, data_len, data_len,
+    end_abs = P + data_len
+    state = _match_lengths_dispatch(x, u32, prev, m8, end_abs, data_len,
                                     D, rcap)
     if hc_level > 0:
         state = _hc_tiers(x, u32, u32s4, prev, m8, prev4, prev8, state,
-                          data_len, D, rcap, hc_level, hc_mode)
+                          end_abs, data_len, D, rcap, hc_level, hc_mode)
     matched, off_all, mlen_all = state
+    if P:
+        matched = matched & (i >= P) \
+            & (off_all <= i - (P - pre_len[:, None]))
     return u32, matched.to(torch.int32), off_all, mlen_all
 
 
@@ -412,32 +431,38 @@ def _emit_stage(x, records, O: int, S_cap: int):
     return out, out_len, ok
 
 
-def _encode(records, x, data_len, D, O, S_cap, rcap, hc_level, hc_tiers):
+def _encode(records, x, data_len, D, O, S_cap, rcap, hc_level, hc_tiers,
+            P, pre_len):
     """E1-E2, then ``records`` (``sequence_records`` or ``chain_records``)
     for E3-E4, then E5."""
-    u32, matched, off_all, mlen_all = _match_stage(x, data_len, D, rcap,
-                                                   hc_level, hc_tiers)
-    # no dictionary prefix in this slice: P = 0, pre_len = 0
+    if pre_len is None:
+        pre_len = torch.full_like(data_len, P)
+    u32, matched, off_all, mlen_all = _match_stage(
+        x, data_len, D, rcap, hc_level, hc_tiers, P, pre_len)
     recs = records(
-        u32, matched, off_all, mlen_all, data_len, torch.zeros_like(data_len),
-        D, S_cap, P=0, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
+        u32, matched, off_all, mlen_all, P + data_len, pre_len, D, S_cap,
+        P=P, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
     return _emit_stage(x, recs, O, S_cap)
 
 
 def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
                             rcap: int = RCAP, hc_level: int = 0,
-                            hc_tiers: str | None = None):
+                            hc_tiers: str | None = None, P: int = 0,
+                            pre_len=None):
     """Greedy-encode a batch of independent blocks.
 
     x: [B, D] int32 bytes (zero padded), data_len: [B] int32,
-    D % 8192 == 0, O >= maximum_output_length(D) the padded output
+    D % 8192 == 0, O >= maximum_output_length(D - P) the padded output
     width, S_cap the record cap (D // 4 + a margin never overflows).
     ``hc_level`` 1-9 runs fast-HC; ``hc_tiers`` ("suffix", "hash",
-    "sort") overrides its level's tier policy.
+    "sort") overrides its level's tier policy.  ``P`` > 0 (a multiple
+    of 8192) is preset-dictionary mode: x[:, :P] holds the window
+    right-aligned, the block starts at column P, ``data_len`` counts the
+    block's bytes and ``pre_len`` [B] int32 (default P) the window's.
     Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool).
     """
     return _encode(sequence_records, x, data_len, D, O, S_cap, rcap,
-                   hc_level, hc_tiers)
+                   hc_level, hc_tiers, P, pre_len)
 
 
 def chain_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
@@ -459,21 +484,42 @@ def chain_records(u32, matched, off_all, mlen_all, end_abs, pre_len,
 
 def encode_batch_chain(x, data_len, D: int, O: int, S_cap: int,
                        rcap: int = RCAP, hc_level: int = 0,
-                       hc_tiers: str | None = None):
+                       hc_tiers: str | None = None, P: int = 0,
+                       pre_len=None):
     """``encode_batch_vectorized`` (same arguments and returns, the same
     bytes) with ``chain_records`` in place of ``sequence_records``."""
     return _encode(chain_records, x, data_len, D, O, S_cap, rcap, hc_level,
-                   hc_tiers)
+                   hc_tiers, P, pre_len)
 
 
-def batch_shapes(max_len: int):
+def batch_shapes(max_len: int, P: int = 0):
     """(D, O, S_cap) of a batch whose longest block has ``max_len``
-    bytes, as ``VectorEncoder.encode_batch`` sizes it
-    (encode_vector.py:1081-1084 there)."""
-    D = _cdiv(max_len + 1, CH) * CH
-    O = _cdiv(maximum_output_length(D) + 1, CH) * CH
+    bytes behind a prefix of P, as ``VectorEncoder.encode_batch`` sizes
+    it (encode_vector.py:1081-1084 there)."""
+    D = P + _cdiv(max_len + 1, CH) * CH
+    O = _cdiv(maximum_output_length(D - P) + 1, CH) * CH
     S_cap = _cdiv(D // MINMATCH + 2, LANE) * LANE + LANE
     return D, O, S_cap
+
+
+def window_rows(blocks, dictionary=None):
+    """The rows of a batch as ``VectorEncoder.encode_batch`` lays them
+    out (encode_vector.py:1076-1094 there): the dictionary's last 64 KB
+    right-aligned in the first P positions of every row (P = 0 without
+    one), each block from P on.  Returns (x [B, D] uint8, data_len [B]
+    int32, pre_len [B] int32 or None, P, D, O, S_cap)."""
+    window = bytes(dictionary)[-MAX_DISTANCE_WINDOW:] if dictionary \
+        else b""
+    P = _cdiv(max(len(window), 1), CH) * CH if dictionary else 0
+    D, O, S_cap = batch_shapes(max(map(len, blocks)), P)
+    x = np.zeros((len(blocks), D), np.uint8)
+    for j, b in enumerate(blocks):
+        if window:
+            x[j, P - len(window):P] = np.frombuffer(window, np.uint8)
+        x[j, P:P + len(b)] = np.frombuffer(b, np.uint8)
+    data_len = np.array([len(b) for b in blocks], np.int32)
+    pre_len = np.full(len(blocks), len(window), np.int32) if P else None
+    return x, data_len, pre_len, P, D, O, S_cap
 
 
 def hc_rcap(hc_level: int, D: int) -> int:
@@ -499,11 +545,9 @@ class VectorEncoder:
                      dictionary=None, hc_tiers=None):
         """Compressed payloads of ``blocks``; b"" for one longer than its
         ``dst_maxlens`` entry (default: the worst-case bound).
-        ``hc_level`` 0 is fast greedy, 1-9 fast-HC (clamped to 9)."""
-        if dictionary:
-            raise NotImplementedError(
-                "preset-dictionary encode is not ported yet: ROADMAP.md "
-                "queue A, item 7")
+        ``hc_level`` 0 is fast greedy, 1-9 fast-HC (clamped to 9).
+        ``dictionary`` enables preset-dictionary matching: its last 64 KB
+        precede every block (P mode); decode needs the same bytes."""
         blocks = [bytes(b) for b in blocks]
         if not blocks:
             return []
@@ -513,22 +557,26 @@ class VectorEncoder:
         if big:
             raise NotImplementedError(
                 f"blocks over {self.MAX_BLOCK} bytes (indices {big[:8]}) "
-                "are not ported yet: ROADMAP.md queue A, item 7")
+                "are not ported yet: ROADMAP.md queue A, item 7b")
         lvl = min(max(hc_level, 0), 9)
         results = [b""] * len(blocks)      # an empty block encodes to b""
         todo = [i for i, b in enumerate(blocks) if b]
         if not todo:
             return results
-        D, O, S_cap = batch_shapes(max(len(blocks[i]) for i in todo))
-        x = np.zeros((len(todo), D), np.uint8)
-        for j, i in enumerate(todo):
-            x[j, :len(blocks[i])] = np.frombuffer(blocks[i], np.uint8)
-        lens = np.array([len(blocks[i]) for i in todo], np.int32)
+        x, lens, pre_len, P, D, O, S_cap = window_rows(
+            [blocks[i] for i in todo], dictionary)
+        if D > MAX_D:
+            raise NotImplementedError(
+                f"a row of {D} positions (a {P}-byte prefix and blocks of "
+                f"up to {max(lens)} bytes) is wider than the encode "
+                f"kernels take ({MAX_D}): ROADMAP.md queue A, item 7b")
         # the bytes ship as uint8 and widen on the device
         xt = torch.from_numpy(x).to(self.device).to(torch.int32)
         out, out_len, ok = encode_batch_vectorized(
             xt, torch.from_numpy(lens).to(self.device), D, O, S_cap,
-            hc_rcap(lvl, D), lvl, hc_tiers)
+            hc_rcap(lvl, D), lvl, hc_tiers, P,
+            None if pre_len is None
+            else torch.from_numpy(pre_len).to(self.device))
         # fetch bytes, not words
         out = out.to(torch.uint8).cpu().numpy()
         out_len, ok = out_len.cpu().numpy(), ok.cpu().numpy()
@@ -537,8 +585,21 @@ class VectorEncoder:
                 payload = out[j, :int(out_len[j])].tobytes()
             else:
                 self.host_encodes += 1
-                payload = (reference.compress_block_hc(blocks[i],
-                                                       dst_maxlens[i])
-                           if lvl else reference.compress_block(blocks[i]))
+                payload = self._host_encode(blocks[i], dst_maxlens[i], lvl,
+                                            dictionary)
             results[i] = payload if len(payload) <= dst_maxlens[i] else b""
         return results
+
+    @staticmethod
+    def _host_encode(block, dst_maxlen, hc_level, dictionary):
+        """A flagged block on the host compressor (encode_vector.py:
+        1214-1226 there), with the whole dictionary as given."""
+        if dictionary:
+            if hc_level:
+                return reference.compress_block_hc_dict(dictionary, block,
+                                                        dst_maxlen)
+            return reference.compress_block_dict(dictionary, block,
+                                                 dst_maxlen)
+        if hc_level:
+            return reference.compress_block_hc(block, dst_maxlen)
+        return reference.compress_block(block)

@@ -934,3 +934,58 @@ def gather_edge_rows(N: int, K: int, seed: int = 0):
         at = rng.permutation(K)[:len(pick)]
         idx[b, at] = edges[pick]
     return tables, idx.astype(np.int32), (17, 32, 1, 24)
+
+
+def dict_edge_rows(P: int, D: int, seed: int = 0) -> list:
+    """Rows that drive the preset-dictionary (prefix) paths' edge cases,
+    for a prefix of P positions and records of less than D bytes:
+    [(name, dictionary, record, block)], ``block`` the record compressed
+    against the dictionary (``compress_block_dict``) or built by hand.
+    The decoders cut a dictionary to its last 64 KB; a row whose cut
+    window is longer than P is left out.
+
+    * windows of 0, 1, 5000, 8191, 8192, 8193, 65,535, 65,536 and 65,537
+      bytes, each with a record whose first match starts in the window
+      and runs across the seam into the record (the window ends in a
+      period-7 run that the record continues), then bytes copied from
+      the window's start and middle and from the record itself;
+    * ``far_match``: a match at offset min(P, 65,535) from the record's
+      first byte, onto the first byte of a window that long;
+    * ``inside``: a record that lies wholly inside the dictionary;
+    * ``empty``: an empty record (the block is one 0 token);
+    * ``junk_below_window``: a match that reaches one byte before the
+      window's start; every decoder must reject it (the record is the
+      block's bytes as if the match were legal, for its length).
+    """
+    from ..constants import MAX_DISTANCE_WINDOW
+    from ..models.reference import compress_block_dict
+
+    rng = random.Random(seed)
+    text = silesia_like(2 * MAX_DISTANCE_WINDOW + D, seed + 11)
+    period = b"abcdefg" * 9
+    rows = []
+    for n in (0, 1, 5000, 8191, 8192, 8193, 65535, 65536, 65537):
+        if min(n, MAX_DISTANCE_WINDOW) > P:
+            continue
+        at = rng.randrange(0, len(text) - n - D)
+        window = (text[at:at + n - len(period)] + period)[-n:] if n else b""
+        fresh = text[-D:]
+        record = (period * 2 + window[:300] + window[n // 2:n // 2 + 500]
+                  + fresh[:1500] + fresh[200:900])[:D - 1]
+        rows.append((f"window_{n}", window, record,
+                     compress_block_dict(window, record)))
+    wl = min(P, MAX_DISTANCE_WINDOW - 1)
+    window = text[:wl]
+    tail = rng.randbytes(20)
+    rows.append(("far_match", window, window[:40] + tail,
+                 _lz4_sequences([(b"", wl, 40)], tail)))
+    wl = min(P, 8192)
+    window = text[MAX_DISTANCE_WINDOW:MAX_DISTANCE_WINDOW + wl]
+    record = window[wl // 8:wl // 8 + min(wl // 2, D - 1)]
+    rows.append(("inside", window, record, compress_block_dict(window,
+                                                               record)))
+    rows.append(("empty", window, b"", b"\x00"))
+    lits = rng.randbytes(2)
+    rows.append(("junk_below_window", window, lits + bytes(10) + tail,
+                 _lz4_sequences([(lits, wl + 3, 10)], tail)))
+    return rows

@@ -5,20 +5,27 @@ kernels), held against the JAX package and the oracles.
   state words, on random words and on ``corpus.resolve_edge_rows``;
 * ``decode_batch_vectorized`` against the JAX package's XLA branch
   (``decode_batch_vectorized(..., fused=False)``): out, total_out, ok,
-  strict, consumed and needed equal, tolerance 0;
+  strict, consumed and needed equal, tolerance 0, with the decoded
+  lengths and, for the unknown-length path, with caps as ``out_len``;
+* ``VectorDecoder.decode_batch_unknown`` against the hardened decoders
+  of both packages;
 * ``VectorDecoder`` and the codec against the native oracle.
 """
 
 import random
+import re
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 import jax.numpy as jnp  # noqa: E402
 
 from lz4net_tpu.models import native  # noqa: E402
+from lz4net_tpu.models import reference as jref  # noqa: E402
 from lz4net_tpu.ops import decode_vector as jdv  # noqa: E402
 from lz4net_tpu_torch import codec  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
@@ -102,7 +109,12 @@ def test_resolve_wavefront_edge_rows_match_sequential(start_chunk):
                                   _sequential_resolve(t0, start_chunk))
 
 
-def test_decode_slice_matches_jax_xla_branch():
+@pytest.fixture(scope="module")
+def slice_batch():
+    """The decode slice's batch (the cases, two 16 KB silesia blocks and
+    a truncated block) and the JAX XLA branch's outputs for it, with the
+    decoded lengths and with caps as ``out_len`` (the unknown-length
+    path's pass): one compile, as ``out_len`` is traced."""
     sil = corpus.split_blocks(corpus.silesia_like(1 << 20, seed=5), 16384)
     datas = list(CASES.values()) + [sil[3], sil[40]]
     packed = [reference.compress_block(d) for d in datas]
@@ -110,17 +122,77 @@ def test_decode_slice_matches_jax_xla_branch():
     datas.append(datas[0])
     comp, comp_len, out_len, C, D = dv.pack_blocks(
         packed, [len(d) for d in datas])
+    # caps: exact, above (up to D - 1, so D stays), and one byte short
+    caps = np.array([(n, D - 1, n - 1)[j % 3] for j, n in enumerate(out_len)],
+                    np.int32)
     S_cap = -(-(C // 3 + 2) // 128) * 128
-    want = jdv.decode_batch_vectorized(
-        jnp.asarray(comp.astype(np.int32)), jnp.asarray(comp_len),
-        jnp.asarray(out_len), C, D, S_cap, 2 * S_cap, 8192, fused=False)
+
+    def jax_pass(lens):
+        return [np.asarray(w) for w in jdv.decode_batch_vectorized(
+            jnp.asarray(comp.astype(np.int32)), jnp.asarray(comp_len),
+            jnp.asarray(lens), C, D, S_cap, 2 * S_cap, 8192, fused=False)]
+
+    return dict(datas=datas, packed=packed, comp=comp, comp_len=comp_len,
+                out_len=out_len, caps=caps, C=C, D=D,
+                want=jax_pass(out_len), want_caps=jax_pass(caps))
+
+
+def test_decode_slice_matches_jax_xla_branch(slice_batch):
+    b = slice_batch
+    want = b["want"]
     got = dv.decode_batch_vectorized(
-        *dv.batch_from_numpy(comp, comp_len, out_len, "cpu"), C, D)
+        *dv.batch_from_numpy(b["comp"], b["comp_len"], b["out_len"], "cpu"),
+        b["C"], b["D"])
     for name, w, g in zip(("out", "total_out", "ok", "strict", "consumed",
                            "needed"), want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
     strict = got[3].numpy()
     assert strict[:-1].all() and not strict[-1]
+
+
+def test_unknown_length_certificate_matches_jax_xla_branch(slice_batch):
+    """With caps as ``out_len``, ``needed``, ``strict`` and the rest of
+    the certificate equal the JAX XLA branch's; ``needed`` is the decoded
+    length wherever the block is whole."""
+    b = slice_batch
+    got = dv.decode_batch_vectorized(
+        *dv.batch_from_numpy(b["comp"], b["comp_len"], b["caps"], "cpu"),
+        b["C"], b["D"])
+    for name, w, g in zip(("total_out", "ok", "strict", "consumed",
+                           "needed"), b["want_caps"][1:], got[1:]):
+        np.testing.assert_array_equal(g.numpy(), w, name)
+    needed = got[5].numpy()
+    np.testing.assert_array_equal(needed[:-1], b["out_len"][:-1])
+    assert got[3].numpy()[:-1].all() and not got[3].numpy()[-1]
+
+
+def test_decode_batch_unknown_matches_the_hardened_decoders(slice_batch):
+    """``VectorDecoder.decode_batch_unknown`` returns the port's
+    ``reference.decompress_block_unknown`` bytes (the JAX package's too)
+    or raises as it does; the device serves every whole block within its
+    cap, the host every other."""
+    b = slice_batch
+    blocks, caps = b["packed"], [int(c) for c in b["caps"]]
+    dec = dv.VectorDecoder("cpu")
+    whole = [j for j in range(len(blocks) - 1)
+             if caps[j] >= len(b["datas"][j])]
+    got = dec.decode_batch_unknown([blocks[j] for j in whole],
+                                   [caps[j] for j in whole])
+    assert got == [b["datas"][j] for j in whole]
+    assert dec.host_decodes == 0
+    for j, (blk, cap) in enumerate(zip(blocks, caps)):
+        try:
+            want = jref.decompress_block_unknown(blk, cap)
+        except jref.CorruptedBlockError as exc:
+            msg = re.escape(str(exc))
+            with pytest.raises(reference.CorruptedBlockError, match=msg):
+                reference.decompress_block_unknown(blk, cap)
+            with pytest.raises(reference.CorruptedBlockError, match=msg):
+                dec.decode_batch_unknown([blk], [cap])
+        else:
+            assert reference.decompress_block_unknown(blk, cap) == want
+            assert dec.decode_batch_unknown([blk], [cap]) == [want]
+    assert dec.host_decodes == len(blocks) - len(whole)
 
 
 def test_vector_decoder_matches_native_oracle():

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -29,7 +29,12 @@ and 8 tables at D = 512 and 106496.  ``mark_chain``:
 ``corpus.chain_edge_rows`` at D = 4096, at a width 3 short of it and at
 the widest block, D = 106496.  ``table_gather``: ``corpus.gather_edge_rows``
 with 1-4 tables, K below 4, not a multiple of 4 and at the chain path's
-S_cap, N = 128, and an index view off a 16-byte boundary.
+S_cap, N = 128, and an index view off a 16-byte boundary.  The prefix
+(preset-dictionary) mode: ``corpus.dict_edge_rows`` at P = 8192 and
+65536 through ``records_to_state`` and ``resolve_wavefront`` (start_chunk
+P / 8192) and through ``bucket_prev``, ``match_lengths`` (end_abs = P +
+len), ``sequence_records`` (each row's window length, P, 0 and P // 3)
+and ``emit_bytes``, then whole dictionary decode and P-mode encode.
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -49,6 +54,7 @@ torch = pytest.importorskip("torch")
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import chain_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
+from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import emit_kernel  # noqa: E402
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
@@ -469,3 +475,139 @@ def test_table_gather_edge_rows_on_the_card(cuda, N, K, nt, offset):
                                     bits[:nt])
     assert fused_gather.table_launches == before + 1
     _equal(got, fused_gather.table_gather_reference(tables, idx, bits[:nt]))
+
+
+def dict_decode_inputs(P):
+    """``corpus.dict_edge_rows(P, 8192)`` packed for the decode path:
+    (rows, [comp, comp_len, out_len, pre, pre_len] int32 CPU tensors, C,
+    D), each row's window right-aligned below P.  Shared with
+    ``tests/test_torch_dictionary.py``, which holds the plain path
+    against the JAX package on them, as is ``dict_encode_inputs``."""
+    rows = corpus.dict_edge_rows(P, 8192)
+    comp, comp_len, out_len, C, D = dv.pack_blocks(
+        [b for *_, b in rows], [len(r) for _, _, r, _ in rows])
+    pre, pre_len, Pw = dv.pack_windows([w for _, w, _, _ in rows],
+                                       len(rows))
+    assert Pw == P
+    return rows, [torch.from_numpy(a.astype(np.int32)) for a in (
+        comp, comp_len, out_len, pre, pre_len)], C, D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [8192, 65536])
+def test_prefix_decode_kernels_on_dict_edge_rows(cuda, P):
+    """``records_to_state`` at P with each row's window length, and
+    ``resolve_wavefront`` at start_chunk P / 8192 on the state words the
+    decoder builds from it, against their plain versions; then the whole
+    dictionary decode on the card against the CPU path, and the junk
+    row's match below the window rejected."""
+    rows, (comp, comp_len, out_len, pre, pre_len), C, D = \
+        dict_decode_inputs(P)
+    Dt = P + D
+    mark, ll, ml, _ = parse_kernel.parse_tokens_reference(comp, comp_len, C)
+    args = (comp, mark, ll, ml, comp_len, out_len, pre_len)
+    before = records_kernel.launches
+    got = records_kernel.records_to_state(*(t.to(cuda) for t in args), C,
+                                          Dt, P)
+    assert records_kernel.launches == before + 1
+    t0m, cidx, stats = records_kernel.records_to_state_reference(*args, C,
+                                                                 Dt, P)
+    _equal(got, (t0m, cidx, stats))
+    lit = torch.cummax(torch.where(cidx >= 0, cidx.clamp(0, C - 1), 0),
+                       dim=1).values
+    vals, _ = fused_gather.rowbase_gather_reference(comp, lit)
+    t0 = torch.where(cidx >= 0, dv.VFLAG | (vals & 0xFF), t0m)
+    t0[:, :P] = dv.VFLAG | pre
+    before = resolve_kernel.launches
+    got = resolve_kernel.resolve_wavefront(t0.to(cuda), P // dv.CH)
+    assert resolve_kernel.launches == before + 1
+    _equal(got, resolve_kernel.resolve_wavefront_reference(t0, P // dv.CH))
+
+    dev = [t.to(cuda) for t in (comp, comp_len, out_len)]
+    _equal(dv.decode_batch_vectorized(*dev, C, D, pre.to(cuda),
+                                      pre_len.to(cuda)),
+           dv.decode_batch_vectorized(comp, comp_len, out_len, C, D, pre,
+                                      pre_len))
+    junk = [n.startswith("junk") for n, *_ in rows]
+    assert stats[:, 2].tolist() == [int(not j) for j in junk]
+    dec = dv.VectorDecoder(cuda)
+    good = [r for r, j in zip(rows, junk) if not j]
+    assert dec.decode_batch([b for *_, b in good],
+                            [len(r) for _, _, r, _ in good],
+                            [w for _, w, _, _ in good]) \
+        == [r for _, _, r, _ in good]
+    assert dec.host_decodes == 0
+    bad = rows[junk.index(True)]
+    with pytest.raises(reference.CorruptedBlockError, match="window"):
+        dec.decode_batch([bad[3]], [len(bad[2])], bad[1])
+
+
+def dict_encode_inputs(P):
+    """``corpus.dict_edge_rows(P, 8192)`` laid out as the encoder's P-mode
+    rows: x [B, P + 8192] int32 (each row's window right-aligned below P,
+    its record from P on), data_len and pre_len [B] int32 CPU tensors."""
+    rows = corpus.dict_edge_rows(P, 8192)
+    x = np.zeros((len(rows), P + 8192), np.int32)
+    for j, (_, w, r, _) in enumerate(rows):
+        w = w[-65536:]
+        x[j, P - len(w):P] = np.frombuffer(w, np.uint8)
+        x[j, P:P + len(r)] = np.frombuffer(r, np.uint8)
+    return (torch.from_numpy(x),
+            torch.tensor([len(r) for _, _, r, _ in rows], dtype=torch.int32),
+            torch.tensor([min(len(w), 65536) for _, w, _, _ in rows],
+                         dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [8192, 65536])
+@pytest.mark.parametrize("window", ["rows", "full", "none", "part"])
+def test_prefix_encode_kernels_on_dict_edge_rows(cuda, P, window):
+    """The fast encoder's kernels in P mode against their plain versions:
+    ``bucket_prev`` over window and record, ``match_lengths`` with
+    ``end_abs`` = P + len != ``blk_len``, ``sequence_records`` with each
+    row's window length (or P, 0 and P // 3 for every row) and
+    ``emit_bytes`` on its records; then the whole P-mode encode on the
+    card against the CPU path (the chain record path too)."""
+    x, dl, pre_len = dict_encode_inputs(P)
+    pre_len = {"rows": pre_len, "full": torch.full_like(pre_len, P),
+               "none": torch.zeros_like(pre_len),
+               "part": torch.full_like(pre_len, P // 3)}[window]
+    D = x.shape[1]
+    _, O, S_cap = ev.batch_shapes(8191, P)
+    end_abs = P + dl
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    bargs = (u32, us4, hash_kernel.hash_bucket(u32),
+             hash_kernel.hash_bucket8(u32, us4), D)
+    prev = hash_kernel.bucket_prev_reference(*bargs)
+    _equal([hash_kernel.bucket_prev(*(t.to(cuda) for t in bargs[:4]), D)],
+           [prev])
+    off = torch.arange(D, dtype=torch.int32) - prev
+    dks = ev._top_offsets_select(off, (prev >= 0) & (off <= 65535)
+                                 & (off > 4))
+    margs = (x, u32, prev, torch.zeros_like(prev), dks, end_abs, dl)
+    matched, off_all, mlen_all = mlen_kernel.match_lengths_reference(
+        *margs, D, ev.RCAP)
+    _equal(mlen_kernel.match_lengths_fused(*(t.to(cuda) for t in margs), D,
+                                           ev.RCAP),
+           (matched, off_all, mlen_all))
+    i = torch.arange(D, dtype=torch.int32)
+    matched = matched * ((i >= P) & (off_all <= i - (P - pre_len[:, None])))
+    sargs = (u32, matched, off_all, mlen_all, end_abs, pre_len)
+    recs = seq_kernel.sequence_records_reference(*sargs, D, S_cap, P,
+                                                 ev.CU_ROUNDS)
+    before = seq_kernel.launches
+    _equal(seq_kernel.sequence_records(*(t.to(cuda) for t in sargs), D,
+                                       S_cap, P, ev.CU_ROUNDS), recs)
+    assert seq_kernel.launches == before + 1
+    assert (recs[1][:, 0] == P).all()         # literals start at P
+    eargs = (*recs[:5], recs[5][:, 2].contiguous())
+    _equal(emit_kernel.emit_bytes(*(t.to(cuda) for t in eargs), O),
+           emit_kernel.emit_bytes_reference(*eargs, O))
+
+    want = ev.encode_batch_vectorized(x, dl, D, O, S_cap, ev.RCAP, 0, None,
+                                      P, pre_len)
+    dev = (x.to(cuda), dl.to(cuda), D, O, S_cap, ev.RCAP, 0, None, P,
+           pre_len.to(cuda))
+    _equal(ev.encode_batch_vectorized(*dev), want)
+    _equal(ev.encode_batch_chain(*dev), want)

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 from lz4net_tpu.ops import encode_vector as jev  # noqa: E402
 from lz4net_tpu.utils import corpus  # noqa: E402
@@ -82,17 +84,19 @@ def test_entry_points_on_cpu():
 
 
 def test_unported_requests_raise():
+    """Big blocks and P-mode rows wider than the encode kernels take
+    (ROADMAP A7b) raise; preset-dictionary encode is ported
+    (tests/test_torch_dictionary.py)."""
     enc = ev.VectorEncoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         enc.encode_batch([b"x" * (96 * 1024 + 1)])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        enc.encode_batch([b"abc" * 100], dictionary=b"abc")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        enc.encode_batch([b"abc" * 100], hc_level=9, dictionary=b"abc")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        codec.encode(b"abc" * 100, dictionary=b"abc", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        codec.encode(b"abc" * 100, dictionary=b"abc", mode="fast",
+    window = b"abc" * 20000
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        enc.encode_batch([b"abc" * 20000], dictionary=window)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        enc.encode_batch([b"abc" * 20000], hc_level=9, dictionary=window)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        codec.encode(b"abc" * 20000, dictionary=window, mode="fast",
                      device="cpu")
     with pytest.raises(ValueError, match="mode"):
         codec.encode(b"abc", mode="hc", device="cpu")

@@ -13,6 +13,8 @@ their sources.  The hash tiers and the full-width block are in
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 from lz4net_tpu.ops import encode_vector as jev  # noqa: E402
 from lz4net_tpu_torch import codec  # noqa: E402
@@ -68,14 +70,17 @@ def test_hc_entry_points_on_cpu(blocks):
 
 
 def test_hc_unported_requests_raise():
+    """Big blocks and P-mode rows wider than the encode kernels take
+    (ROADMAP A7b) raise; strict HC and preset-dictionary HC are ported
+    (tests/test_torch_dictionary.py)."""
     enc = ev.VectorEncoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         enc.encode_batch([b"x" * (96 * 1024 + 1)], hc_level=9)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        codec.encode_hc(b"abc" * 100, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        codec.encode_hc(b"abc" * 100, dictionary=b"abc", mode="fast",
-                        device="cpu")
+    assert codec.encode_hc(b"abc" * 100, device="cpu") \
+        == reference.compress_block_hc(b"abc" * 100)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        codec.encode_hc(b"abc" * 20000, dictionary=b"abc" * 20000,
+                        mode="fast", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         codec.encode_hc(b"abc", mode="hc", device="cpu")
     with pytest.raises(ValueError, match="hc_tiers"):

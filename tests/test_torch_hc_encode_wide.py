@@ -8,6 +8,8 @@ shapes).  The JAX side selects the hash tiers with its
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 from lz4net_tpu.ops import encode_vector as jev  # noqa: E402
 from lz4net_tpu.utils import corpus  # noqa: E402

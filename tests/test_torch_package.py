@@ -109,6 +109,25 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         cuda_engine.compress_blocks([b"abc" * 10])
     with pytest.raises(RuntimeError, match="cuda"):
         ds.SequencerDecoder()
+    # the dictionary, unknown-length, strict HC and envelope entry points
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.decode(b"\x10x", max_output_length=5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.decode(b"\x10x", 1, dictionary=b"ab")
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode(b"abc" * 10, dictionary=b"abc")
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode_hc(b"abc" * 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode_hc(b"abc" * 10, dictionary=b"abc", mode="fast")
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.wrap(b"abc" * 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.unwrap(codec.wrap(b"abc" * 10, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cuda_engine.compress_blocks_fast_dict([b"abc" * 10], b"abc")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cuda_engine.decompress_blocks_dict([b"\x10x"], [1], b"ab")
 
 
 def test_wrappers_refuse_other_devices():
@@ -194,6 +213,15 @@ def test_cpu_path_launches_no_kernel():
     out, out_len, _ = ev.encode_batch_chain(x, dl, D, O, S_cap)
     assert out[0, :int(out_len[0])].to(torch.uint8).numpy().tobytes() \
         == packed[0]
+    window = data[:1000]
+    packed = cuda_engine.compress_blocks_fast_dict([data], window,
+                                                   device="cpu")
+    assert codec.decode(packed[0], len(data), dictionary=window,
+                        device="cpu") == data
+    assert codec.decode(strict, max_output_length=len(data) + 9,
+                        device="cpu") == data
+    assert codec.unwrap(codec.wrap(data, device="cpu"), device="cpu") \
+        == data
     t = torch.zeros((2, 256), dtype=torch.int32)
     chain_kernel.mark_chain(t + 1, 256)
     fused_gather.lane_lookup(t.reshape(4, 128), t.reshape(4, 128))

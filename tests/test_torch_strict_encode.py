@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the test workers share the cores: one intra-op
+                           # thread each, or they spin against each other
 
 from lz4net_tpu import codec as jcodec  # noqa: E402
 from lz4net_tpu.models import native  # noqa: E402
