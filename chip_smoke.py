@@ -146,12 +146,17 @@
 17. decodes the fast payloads through
    lz4net_tpu_torch.models.cuda.decompress_blocks_dict: byte-exact, no
    host re-decode, each decode kernel launched once; 16 payloads decoded
-   with an all-zero window give the host decoder's bytes or raise where
-   it raises; prints ms per batch and GB/s of records;
+   with an all-zero window, and with the dictionary's last 1 KB (which
+   leaves matches below the window), give the host decoder's bytes or
+   raise, uncertified, where it raises; prints ms per batch and GB/s of
+   records;
 18. decodes the 256 reference-compressed 64 KB blocks through
    VectorDecoder.decode_batch_unknown with a 96 KB cap (D = 106,496):
    byte-exact, no host re-decode, a truncated block and a cap one byte
-   short raise CorruptedBlockError; prints ms per batch;
+   short raise CorruptedBlockError; again with a 1 MB cap (and through
+   codec.decode(max_output_length=)): byte-exact, no host re-decode; a
+   block that decodes to 128 KB raises NotImplementedError naming
+   ROADMAP A4; prints ms per batch;
 19. the facade on the card: codec.wrap, wrap_hc and unwrap round-trip a
    64 KB block, 4 KB of random bytes (stored raw) and an empty buffer;
    codec.encode_hc(mode="strict") and wrap_hc's payload equal
@@ -243,6 +248,43 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def zero_counts(rows):
+    """Every kernel row's launch count at 0."""
+    for row in rows:
+        setattr(row["module"], row["counter"], 0)
+
+
+def read_counts(rows, names=None):
+    """{kernel: launches since ``zero_counts``} for ``names`` (every
+    row's kernel if None)."""
+    by_name = {row["name"]: row for row in rows}
+    return {k: getattr(by_name[k]["module"], by_name[k]["counter"])
+            for k in (by_name if names is None else names)}
+
+
+def host_walls(torch, call, reps=REPS):
+    """Host-clock ms of ``reps`` calls of ``call``, each ended by a
+    device sync."""
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return walls
+
+
+def first_call(torch, rows, call, names=None):
+    """Counts at 0, one ``call()`` timed on the host clock, the counts
+    read: (its result, ms, ``read_counts(rows, names)``)."""
+    zero_counts(rows)
+    t = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return got, ms, read_counts(rows, names)
+
+
 def where_the_time_goes(torch, call, name, n_bytes, unit, card):
     """The device's busy share and time by kernel from torch.profiler over
     one ``call()``, the host's time by function from cProfile over
@@ -290,12 +332,7 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
               f"({path.rsplit('/', 1)[-1]}:{line})")
 
     # the same calls again, now that the process has run a few
-    late = []
-    for _ in range(REPS):
-        t = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        late.append((time.perf_counter() - t) * 1e3)
+    late = host_walls(torch, call)
     late_ms = statistics.median(late)
     print(f"late {name} calls (ms): "
           + " ".join(f"{w:.2f}" for w in late)
@@ -303,7 +340,7 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
           f"{n_bytes / late_ms / 1e6:.4f} GB/s {unit}; {card}")
 
 
-def encode_phases(torch, card, kernel_row, blocks, packed):
+def encode_phases(torch, card, kernel_row, rows, blocks, packed):
     """Steps 6-7 of the module docstring: the encode kernels against
     their plain versions, then the encode path through
     ``compress_blocks_fast``.  Returns that run's launches by kernel."""
@@ -443,18 +480,13 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
           f"[{B}, {O}] from [{B}, {D}]: max abs err 0")
 
     # ---- slice phase: the encode path through the engine ------------------
-    mods = {"bucket_prev": hash_kernel, "match_lengths": mlen_kernel,
-            "sequence_records": seq_kernel, "emit_bytes": emit_kernel,
-            "rowbase_gather": fused_gather}
     enc = cuda_engine.encoder("cuda")
-    for mod in mods.values():
-        mod.launches = 0
     enc.host_encodes = 0
-    t = time.perf_counter()
-    got = cuda_engine.compress_blocks_fast(blocks, device="cuda")
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t) * 1e3
-    launches = {k: mod.launches for k, mod in mods.items()}
+    got, first_ms, launches = first_call(
+        torch, rows, lambda: cuda_engine.compress_blocks_fast(
+            blocks, device="cuda"),
+        ("bucket_prev", "match_lengths", "sequence_records", "emit_bytes",
+         "rowbase_gather"))
     if enc.host_encodes != 0:
         fail(f"{enc.host_encodes} blocks were encoded on the host")
     for kname, n in launches.items():
@@ -482,12 +514,8 @@ def encode_phases(torch, card, kernel_row, blocks, packed):
           f"against {strict} ({strict / n_data:.4f}) from the reference "
           f"compressor; {card}")
 
-    walls = []
-    for _ in range(REPS):
-        t = time.perf_counter()
-        cuda_engine.compress_blocks_fast(blocks, device="cuda")
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
+    walls = host_walls(torch, lambda: cuda_engine.compress_blocks_fast(
+        blocks, device="cuda"))
     wall = statistics.median(walls)
     dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
         x, dl, D, O, S_cap))
@@ -659,7 +687,6 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
 
     # ---- slice phases: each HC path through the engine --------------------
     enc = cuda_engine.encoder("cuda")
-    counted = {row["name"]: row for row in rows}
     by_path = {}
     sizes = {}
     # the reference HC parse is scalar Python: the first 8 blocks only
@@ -671,15 +698,8 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
                     blocks, level=level, device="cuda")
             return enc.encode_batch(blocks, hc_level=level, hc_tiers=tiers)
 
-        for row in rows:
-            setattr(row["module"], row["counter"], 0)
         enc.host_encodes = 0
-        t = time.perf_counter()
-        got = call()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
-        launches = {k: getattr(counted[k]["module"], counted[k]["counter"])
-                    for k in want}
+        got, first_ms, launches = first_call(torch, rows, call, want)
         by_path[path] = launches
         if enc.host_encodes != 0:
             fail(f"{path}: {enc.host_encodes} blocks were encoded on the "
@@ -708,12 +728,7 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
               f"first 8 blocks {got8} bytes against {ref8} from the "
               f"reference HC compressor ({got8 / ref8:.4f}); {card}")
 
-        walls = []
-        for _ in range(REPS - 1):
-            t = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
+        walls = host_walls(torch, call, REPS - 1)
         wall = statistics.median(walls)
         dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
             x, dl, D, O, S_cap, ev.hc_rcap(level, D), level, tiers),
@@ -918,24 +933,14 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         library=lambda: torch.gather(dt, 1, di64), counter="diag_launches")
 
     by_path = {}
-    counted = {row["name"]: row for row in rows}
-
-    def zero_counts():
-        for row in rows:
-            setattr(row["module"], row["counter"], 0)
-
-    def read_counts(want):
-        return {k: getattr(counted[k]["module"], counted[k]["counter"])
-                for k in want}
 
     # ---- probe phase: the only caller of lane_lookup and diag_gather -----
     # tools/probe_fused.py's checks through the port's entry points, with
     # their answers from torch.gather and the band's definition
-    zero_counts()
-    got = fused_gather.lane_lookup(lt, li)
-    vals, band = fused_gather.diag_gather(dt, di, 1, 16)
-    torch.cuda.synchronize()
-    by_path["probe"] = read_counts(("lane_lookup", "diag_gather"))
+    (got, (vals, band)), _, by_path["probe"] = first_call(
+        torch, rows, lambda: (fused_gather.lane_lookup(lt, li),
+                              fused_gather.diag_gather(dt, di, 1, 16)),
+        ("lane_lookup", "diag_gather"))
     if by_path["probe"] != {"lane_lookup": 1, "diag_gather": 1}:
         fail(f"probe: launches {by_path['probe']}")
     rows_d = (di >> 7) - (q >> 7)
@@ -960,12 +965,9 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         return [out[j, :int(n)].tobytes() for j, n in enumerate(out_len)], ok
 
     for path, level, want in CHAIN_PATHS:
-        zero_counts()
-        t = time.perf_counter()
-        got, ok = payloads(ev.encode_batch_chain, level)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
-        launches = read_counts(want)
+        (got, ok), first_ms, launches = first_call(
+            torch, rows, lambda: payloads(ev.encode_batch_chain, level),
+            want)
         by_path[path] = launches
         if launches != want:
             fail(f"{path}: launches {launches}, the path makes {want}")
@@ -989,10 +991,7 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         for _ in range(REPS):
             for walls, fn in ((chain_walls, ev.encode_batch_chain),
                               (seq_walls, ev.encode_batch_vectorized)):
-                t = time.perf_counter()
-                payloads(fn, level)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t) * 1e3)
+                walls += host_walls(torch, lambda: payloads(fn, level), 1)
         inner = 10 if level == 0 else 3
         dev = {}
         for name, fn in (("chain", ev.encode_batch_chain),
@@ -1153,25 +1152,6 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
             n_ops=Bk * O * 20, variant=tag)
     del xk, u32, us4, h4, h8, prev, off, matched, off_all, mlen_all, seq
 
-    counted = {row["name"]: row for row in rows}
-
-    def zero_counts():
-        for row in rows:
-            setattr(row["module"], row["counter"], 0)
-
-    def read_counts(names):
-        return {k: getattr(counted[k]["module"], counted[k]["counter"])
-                for k in names}
-
-    def late(call, reps=REPS - 1):
-        walls = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        return walls
-
     # ---- slice phases: dictionary fast and fast-HC encode ---------------
     enc = cuda_engine.encoder("cuda")
     by_path, sizes, payloads = {}, {}, {}
@@ -1189,15 +1169,10 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
             return cuda_engine.compress_blocks_fast_dict(
                 batch, dictionary, level=level, device="cuda")
 
-        zero_counts()
         enc.host_encodes = 0
         torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        got = call()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
+        got, first_ms, launches = first_call(torch, rows, call, want)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        launches = read_counts(want)
         by_path[path] = launches
         if enc.host_encodes != 0:
             fail(f"{path}: {enc.host_encodes} records were encoded on the "
@@ -1222,7 +1197,7 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
         payloads[path] = got
         sizes[path] = total = sum(map(len, got))
         got8 = sum(map(len, got[:8]))
-        walls = late(call)
+        walls = host_walls(torch, call, REPS - 1)
         rcap = ev.hc_rcap(level, D)
         dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
             xd, dld, D, O, S_cap, rcap, level, None, P, pld),
@@ -1262,13 +1237,9 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
         return cuda_engine.decompress_blocks_dict(fast, lens, dictionary,
                                                   "cuda")
 
-    zero_counts()
     dec.host_decodes = 0
-    t = time.perf_counter()
-    got = dict_call()
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t) * 1e3
-    launches = read_counts(DECODE_KERNELS)
+    got, first_ms, launches = first_call(torch, rows, dict_call,
+                                         DECODE_KERNELS)
     by_path["dict_decode"] = launches
     if got != batch:
         fail("dictionary decode: records differ from their source")
@@ -1277,25 +1248,37 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
              f"re-decoded on the host")
     if any(n != 1 for n in launches.values()):
         fail(f"dictionary decode: launches {launches}, one each expected")
-    # a wrong window (zeros): the host decoder's bytes, or its error
-    zeros = bytes(len(dictionary))
-    raised = certified = 0
-    for p, n in zip(fast[:16], lens):
-        try:
-            want = reference.decompress_block_dict(p, zeros, n)
-        except reference.CorruptedBlockError:
-            raised += 1
+    # a wrong window: the host decoder's bytes, or its error.  Zeros of
+    # the dictionary's length give wrong bytes; the dictionary's last
+    # 1 KB leaves matches below the window, which must raise uncertified
+    wrong = {}
+    for what, window in (("an all-zero window", bytes(len(dictionary))),
+                         ("the dictionary's last 1 KB", dictionary[-1024:])):
+        raised = certified = 0
+        for p, n in zip(fast[:16], lens):
+            before = dec.host_decodes
             try:
-                cuda_engine.decompress_block_dict(p, zeros, n, "cuda")
+                want = reference.decompress_block_dict(p, window, n)
             except reference.CorruptedBlockError:
-                continue
-            fail("a payload decoded with a wrong window did not raise")
-        before = dec.host_decodes
-        if cuda_engine.decompress_block_dict(p, zeros, n, "cuda") != want:
-            fail("a payload decoded with a wrong window differs from the "
-                 "host decoder's bytes")
-        certified += dec.host_decodes == before
-    walls = late(dict_call, REPS)
+                raised += 1
+                try:
+                    cuda_engine.decompress_block_dict(p, window, n, "cuda")
+                except reference.CorruptedBlockError:
+                    if dec.host_decodes == before:
+                        fail(f"a payload with {what} raised without the "
+                             f"host decoder")
+                    continue
+                fail(f"a payload decoded with {what} did not raise")
+            if cuda_engine.decompress_block_dict(p, window, n, "cuda") \
+                    != want:
+                fail(f"a payload decoded with {what} differs from the "
+                     f"host decoder's bytes")
+            certified += dec.host_decodes == before
+        wrong[what] = (raised, certified)
+    if wrong["the dictionary's last 1 KB"][0] == 0:
+        fail("no payload reached below a 1 KB window: the gate saw no "
+             "match below the window")
+    walls = host_walls(torch, dict_call)
     wall = statistics.median(walls)
     comp, comp_len, out_len, C, Dd = dv.pack_blocks(fast, lens)
     pre, pre_len, _ = dv.pack_windows(dictionary, B)
@@ -1304,10 +1287,12 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
              torch.from_numpy(pre_len).to("cuda"))
     dev_ms = time_ms(torch, lambda: dv.decode_batch_vectorized(*dargs))
     print(f"dict_decode slice: {B} records byte-exact, host_decodes=0, "
-          f"launches {launches}; 16 payloads with an all-zero window: "
-          f"{raised} raised as the host decoder does, {16 - raised} gave "
-          f"its bytes ({certified} of them certified on the card); first "
-          f"call {first_ms:.2f} ms, later "
+          f"launches {launches}; 16 payloads with "
+          + "; with ".join(f"{what}: {r} raised uncertified as the host "
+                           f"decoder does, {16 - r} gave its bytes ({c} of "
+                           f"them certified on the card)"
+                           for what, (r, c) in wrong.items())
+          + f"; first call {first_ms:.2f} ms, later "
           + " ".join(f"{w:.2f}" for w in walls)
           + f"; median {wall:.2f} ms per {B}-record batch, "
           f"{n_rec / wall / 1e6:.4f} GB/s of records (host clock); device "
@@ -1321,13 +1306,9 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
     def unknown_call():
         return dec.decode_batch_unknown(packed, [cap] * len(packed))
 
-    zero_counts()
     dec.host_decodes = 0
-    t = time.perf_counter()
-    got = unknown_call()
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t) * 1e3
-    launches = read_counts(DECODE_KERNELS)
+    got, first_ms, launches = first_call(torch, rows, unknown_call,
+                                         DECODE_KERNELS)
     by_path["unknown_decode"] = launches
     if got != blocks:
         fail("unknown-length decode: blocks differ from their source")
@@ -1345,8 +1326,34 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
         except reference.CorruptedBlockError:
             continue
         fail(f"unknown-length decode: {what} did not raise")
-    walls = late(unknown_call, REPS)
-    wall = statistics.median(walls)
+    # a cap above 96 KB stays on the card (its pass cut to 96 KB); a
+    # block that decodes to more raises, naming its ROADMAP item
+    big_cap = 1 << 20
+    dec.host_decodes = 0
+    if dec.decode_batch_unknown(packed, [big_cap] * len(packed)) != blocks \
+            or codec.decode(packed[0], max_output_length=big_cap,
+                            device="cuda") != blocks[0]:
+        fail(f"unknown-length decode with a {big_cap}-byte cap: blocks "
+             f"differ from their source")
+    if dec.host_decodes != 0:
+        fail(f"unknown-length decode with a {big_cap}-byte cap: "
+             f"{dec.host_decodes} blocks were re-decoded on the host")
+    try:
+        dec.decode_batch_unknown([reference.compress_block(
+            data[:2 * BLOCK])], [big_cap])
+    except NotImplementedError as exc:
+        if "item 4" not in str(exc):
+            fail(f"a 128 KB block's error names no ROADMAP item: {exc}")
+    else:
+        fail("unknown-length decode: a block that decodes to 128 KB did "
+             "not raise NotImplementedError")
+    # in turns: 96 KB cap, 1 MB cap, ...
+    walls, big_walls = [], []
+    for _ in range(REPS):
+        walls += host_walls(torch, unknown_call, 1)
+        big_walls += host_walls(torch, lambda: dec.decode_batch_unknown(
+            packed, [big_cap] * len(packed)), 1)
+    wall, big_wall = statistics.median(walls), statistics.median(big_walls)
     comp, comp_len, _, C, _ = dv.pack_blocks(packed, blens)
     Dc = -(-(cap + 1) // dv.CH) * dv.CH
     uargs = (*dv.batch_from_numpy(comp, comp_len, [cap] * len(packed),
@@ -1356,10 +1363,15 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
     print(f"unknown_decode slice: {len(packed)} blocks of 64 KB with a "
           f"{cap}-byte cap byte-exact, host_decodes=0, launches {launches}; "
           f"a truncated block and a cap one byte short raise "
-          f"CorruptedBlockError; first call {first_ms:.2f} ms, later "
+          f"CorruptedBlockError; with a {big_cap}-byte cap byte-exact, "
+          f"host_decodes=0, and a 128 KB block raises NotImplementedError "
+          f"(ROADMAP A4); first call {first_ms:.2f} ms, later "
           + " ".join(f"{w:.2f}" for w in walls)
           + f"; median {wall:.2f} ms per batch, "
-          f"{n_data / wall / 1e6:.4f} GB/s decoded (host clock); device "
+          f"{n_data / wall / 1e6:.4f} GB/s decoded (host clock); with the "
+          f"{big_cap}-byte cap in the same turns "
+          + " ".join(f"{w:.2f}" for w in big_walls)
+          + f", median {big_wall:.2f} ms; device "
           f"pass {dev_ms:.3f} ms (D={Dc}), {n_data / dev_ms / 1e6:.3f} "
           f"GB/s; {card}")
 
@@ -1390,11 +1402,9 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
         fail("codec.decode(dictionary=) differs from the batch path")
     # the chain record path in P mode: the mark_chain and table_gather gate
     want = CHAIN_PATHS[0][2]
-    zero_counts()
-    chain = ev.encode_batch_chain(xd, dld, D, O, S_cap, ev.RCAP, 0, None,
-                                  P, pld)
-    torch.cuda.synchronize()
-    launches = read_counts(want)
+    chain, _, launches = first_call(
+        torch, rows, lambda: ev.encode_batch_chain(
+            xd, dld, D, O, S_cap, ev.RCAP, 0, None, P, pld), want)
     by_path["dict_chain"] = launches
     if launches != want:
         fail(f"dict_chain: launches {launches}, the path makes {want}")
@@ -1555,28 +1565,12 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     def run_path(path, call, kname):
         """Counts at 0, one call, the launches read; the path must launch
         ``kname`` once and no other kernel."""
-        for row in rows:
-            setattr(row["module"], row["counter"], 0)
-        t = time.perf_counter()
-        got = call()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
-        launches = {row["name"]: getattr(row["module"], row["counter"])
-                    for row in rows}
+        got, first_ms, launches = first_call(torch, rows, call)
         by_path[path] = launches
         if launches != {**{k: 0 for k in launches}, kname: 1}:
             fail(f"{path}: launches {launches}, the path makes one "
                  f"{kname} and nothing else")
         return got, first_ms
-
-    def host_ms(call, n=REPS):
-        walls = []
-        for _ in range(n):
-            t = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        return walls
 
     # ---- slice phase: strict encode -------------------------------------
     def strict_call():
@@ -1594,7 +1588,7 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     if codec.encode(blocks[0], tight) != b"" \
             or reference.compress_block(blocks[0], tight) != b"":
         fail("a budget overflow did not return b''")
-    walls = host_ms(strict_call)
+    walls = host_walls(torch, strict_call)
     dev_ms = time_ms(torch, lambda: es.encode_sequencer(src, src_len, cap,
                                                          O))
     late = statistics.median(walls)
@@ -1633,9 +1627,9 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     # in turns: sequencer, vector, sequencer, vector, ...
     seq_walls, vec_walls = [], []
     for _ in range(REPS):
-        seq_walls += host_ms(seq_call, 1)
-        vec_walls += host_ms(lambda: codec.decode_batch(packed, lens,
-                                                        device="cuda"), 1)
+        seq_walls += host_walls(torch, seq_call, 1)
+        vec_walls += host_walls(torch, lambda: codec.decode_batch(
+            packed, lens, device="cuda"), 1)
     dev_ms = time_ms(torch, lambda: ds.decode_sequencer(comp, comp_len,
                                                          out_len, D))
     seq, vec = statistics.median(seq_walls), statistics.median(vec_walls)
@@ -1915,15 +1909,9 @@ def main() -> int:
 
     # ---- slice phase: the main path through the codec -------------------
     dec = cuda_engine.decoder("cuda")
-    for row in rows:
-        setattr(row["module"], row["counter"], 0)
     dec.host_decodes = 0
-    t = time.perf_counter()
-    got = codec.decode_batch(packed, lens, device="cuda")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = {row["name"]: getattr(row["module"], row["counter"])
-                for row in rows}
+    got, first_ms, launches = first_call(
+        torch, rows, lambda: codec.decode_batch(packed, lens, device="cuda"))
     host_decodes = dec.host_decodes
     if got != blocks:
         bad = [i for i, (g, b) in enumerate(zip(got, blocks)) if g != b]
@@ -1934,21 +1922,17 @@ def main() -> int:
         if n <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     print(f"slice: {len(blocks)} blocks byte-exact, host_decodes=0, "
-          f"launches {launches}, first call {first_s * 1e3:.1f} ms")
+          f"launches {launches}, first call {first_ms:.1f} ms")
 
-    walls = []
-    for _ in range(REPS):
-        t = time.perf_counter()
-        codec.decode_batch(packed, lens, device="cuda")
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
+    walls = host_walls(torch, lambda: codec.decode_batch(packed, lens,
+                                                         device="cuda"))
     wall = statistics.median(walls)
     dev_ms = time_ms(torch, lambda: dv.decode_batch_vectorized(
         comp, comp_len, out_len, C, D))
     print(f"slice decode_batch, first calls (ms): "
-          + " ".join(f"{w * 1e3:.2f}" for w in walls)
-          + f"; median {wall * 1e3:.2f} ms per {len(blocks)}-block batch, "
-          f"{len(data) / wall / 1e9:.4f} GB/s decoded (host clock, "
+          + " ".join(f"{w:.2f}" for w in walls)
+          + f"; median {wall:.2f} ms per {len(blocks)}-block batch, "
+          f"{len(data) / wall / 1e6:.4f} GB/s decoded (host clock, "
           f"end to end); device pass {dev_ms:.3f} ms, "
           f"{len(data) / dev_ms / 1e6:.3f} GB/s; {card}")
     where_the_time_goes(
@@ -1964,7 +1948,7 @@ def main() -> int:
     else:
         fail("a truncated block decoded without CorruptedBlockError")
 
-    enc_launches, fast_total = encode_phases(torch, card, kernel_row,
+    enc_launches, fast_total = encode_phases(torch, card, kernel_row, rows,
                                              blocks, packed)
     strict_launches = strict_phases(torch, card, kernel_row, rows, blocks,
                                     packed)

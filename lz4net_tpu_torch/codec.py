@@ -9,12 +9,10 @@ from __future__ import annotations
 
 import struct
 
-from .constants import (HC_LEVEL_DEFAULT, MAX_NB_ATTEMPTS,
-                        WRAP_HEADER_LENGTH, hc_level_attempts,
+from .constants import (HC_LEVEL_DEFAULT, WRAP_HEADER_LENGTH,
                         maximum_output_length)
-from .models import cuda, reference
+from .models import cuda
 from .models.service_adapters import CudaService
-from .ops.decode_vector import resolve_device
 
 
 def codec_name() -> str:
@@ -54,9 +52,8 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
         if mode == "fast":
             return cuda.compress_blocks_fast_dict(
                 [bytes(src)], dictionary, [dst_maxlen], device=device)[0]
-        resolve_device(device)
-        return reference.compress_block_dict(dictionary, bytes(src),
-                                             dst_maxlen)
+        return cuda.compress_block_dict(dictionary, bytes(src), dst_maxlen,
+                                        device)
     if mode == "strict":
         return CudaService(device).encode(bytes(src), dst_maxlen)
     return cuda.compress_blocks_fast([bytes(src)], [dst_maxlen], device)[0]
@@ -86,10 +83,8 @@ def encode_hc(src: bytes, dst_maxlen: int | None = None,
             return cuda.compress_blocks_fast_dict(
                 [bytes(src)], dictionary, [dst_maxlen], level=max(level, 1),
                 device=device)[0]
-        resolve_device(device)
-        attempts = MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
-        return reference.compress_block_hc_dict(dictionary, bytes(src),
-                                                dst_maxlen, attempts)
+        return cuda.compress_block_hc_dict(dictionary, bytes(src),
+                                           dst_maxlen, level, device)
     if mode == "strict":
         return CudaService(device).encode_hc(bytes(src), dst_maxlen, level)
     return cuda.compress_blocks_hc_fast([bytes(src)], [dst_maxlen], level,

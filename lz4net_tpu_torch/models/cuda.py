@@ -6,9 +6,11 @@ Port of the entry points of ``lz4net_tpu/models/tpu.py``: strict encode
 (``compress_block``, ``compress_blocks``, :66-80), ``compress_blocks_fast``
 (:83-92), ``compress_blocks_fast_dict`` (:95-103), strict HC
 (``compress_block_hc``, :106-114), ``compress_blocks_hc_fast``
-(:117-124) and decode (:127-195).  Strict HC runs on the host's
-reference HC parser, as the JAX package runs it on its host oracle: no
-device kernel of either package computes the strict HC parse.  The JAX
+(:117-124) and decode (:127-195), with strict dictionary encode
+(``compress_block_dict``, ``compress_block_hc_dict``; the JAX facade's
+``_dict_engine``).  Strict HC and strict dictionary encode run on the
+host's reference compressor, as the JAX package runs them on its host
+oracle: no device kernel of either package computes those parses.  The JAX
 package makes a decoder or encoder per call; here
 one vector decoder and one vector encoder per device are kept, so their
 ``host_decodes`` and ``host_encodes`` counts can be read after a run.
@@ -121,6 +123,12 @@ def compress_blocks_fast_dict(blocks, dictionary, dst_maxlens=None,
                                         dictionary=dictionary)
 
 
+def _hc_attempts(level: int) -> int:
+    """Chain-walk attempts of the strict HC parse at ``level``: the
+    reference's fixed 256 from level 9, fewer below."""
+    return MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
+
+
 def compress_block_hc(src: bytes, dst_maxlen: int | None = None,
                       level: int = 9, device="cuda") -> bytes:
     """Strict HC encode: the reference HC parse (level 9 the reference's
@@ -130,8 +138,32 @@ def compress_block_hc(src: bytes, dst_maxlen: int | None = None,
     is ``compress_blocks_hc_fast``.  ``device`` is checked as every entry
     point checks it."""
     resolve_device(device)
-    attempts = MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
-    return reference.compress_block_hc(bytes(src), dst_maxlen, attempts)
+    return reference.compress_block_hc(bytes(src), dst_maxlen,
+                                       _hc_attempts(level))
+
+
+def compress_block_dict(dictionary: bytes, src: bytes,
+                        dst_maxlen: int | None = None,
+                        device="cuda") -> bytes:
+    """Strict encode against a preset dictionary: the reference
+    dictionary compressor's bytes, b"" when longer than ``dst_maxlen``.
+    It runs on the host, as the JAX package runs it on its host oracle
+    (no device kernel of either package computes this parse); the
+    device's dictionary encode is ``compress_blocks_fast_dict``."""
+    resolve_device(device)
+    return reference.compress_block_dict(dictionary, bytes(src), dst_maxlen)
+
+
+def compress_block_hc_dict(dictionary: bytes, src: bytes,
+                           dst_maxlen: int | None = None, level: int = 9,
+                           device="cuda") -> bytes:
+    """Strict HC encode against a preset dictionary: the reference HC
+    parse with the window in front, on the host as
+    ``compress_block_hc``; the device's is ``compress_blocks_fast_dict``
+    at ``level`` 1-9."""
+    resolve_device(device)
+    return reference.compress_block_hc_dict(dictionary, bytes(src),
+                                            dst_maxlen, _hc_attempts(level))
 
 
 def compress_blocks_hc_fast(blocks, dst_maxlens=None, level: int = 9,

@@ -222,28 +222,38 @@ class VectorDecoder:
 
     def decode_batch_unknown(self, blocks, max_out_lens):
         """Unknown-output-length decode: each block's decoded bytes, at
-        most its ``max_out_lens`` entry.  One device pass with the caps as
-        output lengths; a block is accepted only when the hardened
-        decoder's invariants hold and the exact size the parse implies
-        (``needed``) was decoded whole within its cap
-        (decode_vector.py:694-700 there).  Every other block, and those
-        the JAX package keeps off its device (empty, or a block or cap
-        over 96 KB), is re-decoded by the host's hardened decoder, which
-        raises the reference's errors for malformed input."""
+        most its ``max_out_lens`` entry.  One device pass with each cap,
+        cut to 96 KB, as the output length; a block is accepted only when
+        the hardened decoder's invariants hold and the exact size the
+        parse implies (``needed``, which does not depend on the output
+        length) was decoded whole within its cap (decode_vector.py:
+        694-700 there).  A block over 96 KB, or one whose parse implies
+        more than 96 KB under a cap above that, raises
+        ``NotImplementedError`` (ROADMAP.md queue A, item 4).  Every
+        other uncertified block, and an empty one, is re-decoded by the
+        host's hardened decoder, which raises the reference's errors for
+        malformed input."""
         blocks = [bytes(b) for b in blocks]
         caps = list(max_out_lens)
+        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
         results = [None] * len(blocks)
-        on_device = [i for i, (b, n) in enumerate(zip(blocks, caps))
-                     if 0 < len(b) <= self.MAX_BLOCK
-                     and n <= self.MAX_BLOCK]
-        if on_device:
+        live = [i for i, b in enumerate(blocks) if b]
+        if live and not big:
             out, total, ok, strict, needed = self._pass(
-                [blocks[i] for i in on_device], [caps[i] for i in on_device])
-            for j, i in enumerate(on_device):
+                [blocks[i] for i in live],
+                [min(caps[i], self.MAX_BLOCK) for i in live])
+            for j, i in enumerate(live):
                 n = int(needed[j])
                 if (bool(ok[j]) and bool(strict[j]) and n == int(total[j])
                         and n <= caps[i]):
                     results[i] = out[j, :n].tobytes()
+                elif n > self.MAX_BLOCK and caps[i] > self.MAX_BLOCK:
+                    big.append(i)
+        if big:
+            raise NotImplementedError(
+                f"blocks over {self.MAX_BLOCK} bytes, compressed or decoded "
+                f"(indices {big[:8]}), are not ported yet: ROADMAP.md queue "
+                "A, item 4")
         for i, r in enumerate(results):
             if r is None:
                 self.host_decodes += 1

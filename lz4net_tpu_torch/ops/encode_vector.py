@@ -63,11 +63,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
-                         MFLIMIT, MINLENGTH, MINMATCH,
-                         maximum_output_length)
+from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
+                         MINMATCH, maximum_output_length)
 from ..models import reference
-from .decode_vector import CH, _cdiv, resolve_device
+from .decode_vector import CH, _cdiv, pack_windows, resolve_device
 from .chain_kernel import mark_chain
 from .emit_kernel import emit_bytes
 from .fused_gather import rowbase_gather, table_gather
@@ -504,21 +503,22 @@ def batch_shapes(max_len: int, P: int = 0):
 
 def window_rows(blocks, dictionary=None):
     """The rows of a batch as ``VectorEncoder.encode_batch`` lays them
-    out (encode_vector.py:1076-1094 there): the dictionary's last 64 KB
-    right-aligned in the first P positions of every row (P = 0 without
-    one), each block from P on.  Returns (x [B, D] uint8, data_len [B]
-    int32, pre_len [B] int32 or None, P, D, O, S_cap)."""
-    window = bytes(dictionary)[-MAX_DISTANCE_WINDOW:] if dictionary \
-        else b""
-    P = _cdiv(max(len(window), 1), CH) * CH if dictionary else 0
+    out (encode_vector.py:1076-1094 there): the prefix rows of
+    ``decode_vector.pack_windows`` (one shared dictionary, or a list of
+    one a block, each cut to its last 64 KB and right-aligned in the
+    first P positions; P = 0 without one), each block from P on.
+    Returns (x [B, D] uint8, data_len [B] int32, pre_len [B] int32 or
+    None, P, D, O, S_cap)."""
+    B = len(blocks)
+    pre, pre_len, P = (pack_windows(dictionary, B) if dictionary
+                       else (None, None, 0))
     D, O, S_cap = batch_shapes(max(map(len, blocks)), P)
-    x = np.zeros((len(blocks), D), np.uint8)
+    x = np.zeros((B, D), np.uint8)
+    if P:
+        x[:, :P] = pre
     for j, b in enumerate(blocks):
-        if window:
-            x[j, P - len(window):P] = np.frombuffer(window, np.uint8)
         x[j, P:P + len(b)] = np.frombuffer(b, np.uint8)
     data_len = np.array([len(b) for b in blocks], np.int32)
-    pre_len = np.full(len(blocks), len(window), np.int32) if P else None
     return x, data_len, pre_len, P, D, O, S_cap
 
 

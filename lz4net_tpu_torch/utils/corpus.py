@@ -989,3 +989,38 @@ def dict_edge_rows(P: int, D: int, seed: int = 0) -> list:
     rows.append(("junk_below_window", window, lits + bytes(10) + tail,
                  _lz4_sequences([(lits, wl + 3, 10)], tail)))
     return rows
+
+
+def dict_decode_inputs(P: int, D: int = 8192):
+    """``dict_edge_rows(P, D)`` packed by the dictionary decoder's own
+    layout (``decode_vector.pack_blocks`` and ``pack_windows``): (rows,
+    [comp, comp_len, out_len, pre, pre_len] int32 CPU tensors, C, D)."""
+    import torch
+
+    from ..ops import decode_vector as dv
+
+    rows = dict_edge_rows(P, D)
+    comp, comp_len, out_len, C, Dd = dv.pack_blocks(
+        [b for *_, b in rows], [len(r) for _, _, r, _ in rows])
+    pre, pre_len, Pw = dv.pack_windows([w for _, w, _, _ in rows],
+                                       len(rows))
+    assert Pw == P
+    return rows, [torch.from_numpy(a.astype("int32")) for a in (
+        comp, comp_len, out_len, pre, pre_len)], C, Dd
+
+
+def dict_encode_inputs(P: int, D: int = 8192):
+    """``dict_edge_rows(P, D)`` laid out as the encoder's P-mode rows by
+    ``encode_vector.window_rows`` (each row's window right-aligned below
+    P, its record from P on): x [B, P + D] int32, data_len and pre_len
+    [B] int32 CPU tensors."""
+    import torch
+
+    from ..ops import encode_vector as ev
+
+    rows = dict_edge_rows(P, D)
+    x, data_len, pre_len, Pw, *_ = ev.window_rows(
+        [r for _, _, r, _ in rows], [w for _, w, _, _ in rows])
+    assert Pw == P
+    return (torch.from_numpy(x.astype("int32")), torch.from_numpy(data_len),
+            torch.from_numpy(pre_len))

@@ -8,7 +8,7 @@ kernels), held against the JAX package and the oracles.
   strict, consumed and needed equal, tolerance 0, with the decoded
   lengths and, for the unknown-length path, with caps as ``out_len``;
 * ``VectorDecoder.decode_batch_unknown`` against the hardened decoders
-  of both packages;
+  of both packages, and with caps over 96 KB on the device;
 * ``VectorDecoder`` and the codec against the native oracle.
 """
 
@@ -28,6 +28,7 @@ from lz4net_tpu.models import native  # noqa: E402
 from lz4net_tpu.models import reference as jref  # noqa: E402
 from lz4net_tpu.ops import decode_vector as jdv  # noqa: E402
 from lz4net_tpu_torch import codec  # noqa: E402
+from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import resolve_kernel  # noqa: E402
@@ -193,6 +194,40 @@ def test_decode_batch_unknown_matches_the_hardened_decoders(slice_batch):
             assert reference.decompress_block_unknown(blk, cap) == want
             assert dec.decode_batch_unknown([blk], [cap]) == [want]
     assert dec.host_decodes == len(blocks) - len(whole)
+
+
+def test_decode_batch_unknown_keeps_caps_over_96_kb_on_the_device(
+        slice_batch):
+    """A cap above 96 KB cuts the device pass's output length to 96 KB
+    and changes nothing else: every whole block decodes on the device,
+    through ``codec.decode(max_output_length=)`` too.  Only a block
+    whose parse implies more than 96 KB under such a cap, or one
+    compressed to more, raises ``NotImplementedError`` naming ROADMAP A4;
+    under a cap of 96 KB such a block is the host's, which raises the
+    reference's error."""
+    b = slice_batch
+    blocks, datas = b["packed"][:-1], b["datas"][:-1]
+    big_cap, MAX = 1 << 20, dv.VectorDecoder.MAX_BLOCK
+    dec = dv.VectorDecoder("cpu")
+    assert dec.decode_batch_unknown(blocks, [big_cap] * len(blocks)) \
+        == datas
+    assert dec.host_decodes == 0
+    facade = cuda_engine.decoder("cpu")
+    before = facade.host_decodes
+    assert codec.decode(blocks[-1], max_output_length=big_cap,
+                        device="cpu") == datas[-1]
+    assert facade.host_decodes == before
+    big = reference.compress_block(bytes(128 * 1024))
+    for blk in (big, bytes(MAX + 1)):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            dec.decode_batch_unknown([blocks[0], blk], [big_cap] * 2)
+    assert dec.host_decodes == 0
+    with pytest.raises(jref.CorruptedBlockError) as want:
+        jref.decompress_block_unknown(big, MAX)
+    with pytest.raises(reference.CorruptedBlockError,
+                       match=re.escape(str(want.value))):
+        dec.decode_batch_unknown([big], [MAX])
+    assert dec.host_decodes == 1
 
 
 def test_vector_decoder_matches_native_oracle():

@@ -41,9 +41,6 @@ from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
-from test_torch_edge_cases_gpu import (dict_decode_inputs,  # noqa: E402
-                                       dict_encode_inputs)
-
 P = 8192
 DICT = (b"GET /api/v1/users HTTP/1.1\r\nHost: example.com\r\n"
         b"Content-Type: application/json\r\nAuthorization: Bearer "
@@ -113,9 +110,10 @@ def test_host_decoders_raise_as_jax(case):
 
 
 def test_dictionary_decode_matches_jax_xla_branch():
-    """``corpus.dict_edge_rows`` at P = 8192 (``dict_decode_inputs``, as
-    the card's tests pack them)."""
-    rows, args, C, D = dict_decode_inputs(P)
+    """``corpus.dict_edge_rows`` at P = 8192, packed by the decoder's own
+    layout (``corpus.dict_decode_inputs``, as the card's tests pack
+    them)."""
+    rows, args, C, D = corpus.dict_decode_inputs(P)
     assert sorted(set(args[4].tolist())) == [0, 1, 5000, 8191, 8192]
     S_cap = -(-(C // 3 + 2) // 128) * 128
     comp, comp_len, out_len, pre, pre_len = (jnp.asarray(a.numpy())
@@ -179,10 +177,10 @@ def test_dictionary_decode_shared_window_and_facade():
 
 def test_dictionary_fast_encode_matches_jax_bytes():
     """``corpus.dict_edge_rows`` at P = 8192 as P-mode rows, each with its
-    own window (``dict_encode_inputs``, as the card's tests lay them
-    out)."""
+    own window, laid out by ``encode_vector.window_rows``
+    (``corpus.dict_encode_inputs``, as the card's tests lay them out)."""
     rows = corpus.dict_edge_rows(P, 8192)
-    x, dl, pre_len = dict_encode_inputs(P)
+    x, dl, pre_len = corpus.dict_encode_inputs(P)
     D, O, S_cap = ev.batch_shapes(8191, P)
     assert D == x.shape[1]
     want = jev.encode_batch_vectorized(

@@ -477,22 +477,6 @@ def test_table_gather_edge_rows_on_the_card(cuda, N, K, nt, offset):
     _equal(got, fused_gather.table_gather_reference(tables, idx, bits[:nt]))
 
 
-def dict_decode_inputs(P):
-    """``corpus.dict_edge_rows(P, 8192)`` packed for the decode path:
-    (rows, [comp, comp_len, out_len, pre, pre_len] int32 CPU tensors, C,
-    D), each row's window right-aligned below P.  Shared with
-    ``tests/test_torch_dictionary.py``, which holds the plain path
-    against the JAX package on them, as is ``dict_encode_inputs``."""
-    rows = corpus.dict_edge_rows(P, 8192)
-    comp, comp_len, out_len, C, D = dv.pack_blocks(
-        [b for *_, b in rows], [len(r) for _, _, r, _ in rows])
-    pre, pre_len, Pw = dv.pack_windows([w for _, w, _, _ in rows],
-                                       len(rows))
-    assert Pw == P
-    return rows, [torch.from_numpy(a.astype(np.int32)) for a in (
-        comp, comp_len, out_len, pre, pre_len)], C, D
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [8192, 65536])
 def test_prefix_decode_kernels_on_dict_edge_rows(cuda, P):
@@ -502,7 +486,7 @@ def test_prefix_decode_kernels_on_dict_edge_rows(cuda, P):
     dictionary decode on the card against the CPU path, and the junk
     row's match below the window rejected."""
     rows, (comp, comp_len, out_len, pre, pre_len), C, D = \
-        dict_decode_inputs(P)
+        corpus.dict_decode_inputs(P)
     Dt = P + D
     mark, ll, ml, _ = parse_kernel.parse_tokens_reference(comp, comp_len, C)
     args = (comp, mark, ll, ml, comp_len, out_len, pre_len)
@@ -542,22 +526,6 @@ def test_prefix_decode_kernels_on_dict_edge_rows(cuda, P):
         dec.decode_batch([bad[3]], [len(bad[2])], bad[1])
 
 
-def dict_encode_inputs(P):
-    """``corpus.dict_edge_rows(P, 8192)`` laid out as the encoder's P-mode
-    rows: x [B, P + 8192] int32 (each row's window right-aligned below P,
-    its record from P on), data_len and pre_len [B] int32 CPU tensors."""
-    rows = corpus.dict_edge_rows(P, 8192)
-    x = np.zeros((len(rows), P + 8192), np.int32)
-    for j, (_, w, r, _) in enumerate(rows):
-        w = w[-65536:]
-        x[j, P - len(w):P] = np.frombuffer(w, np.uint8)
-        x[j, P:P + len(r)] = np.frombuffer(r, np.uint8)
-    return (torch.from_numpy(x),
-            torch.tensor([len(r) for _, _, r, _ in rows], dtype=torch.int32),
-            torch.tensor([min(len(w), 65536) for _, w, _, _ in rows],
-                         dtype=torch.int32))
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [8192, 65536])
 @pytest.mark.parametrize("window", ["rows", "full", "none", "part"])
@@ -568,7 +536,7 @@ def test_prefix_encode_kernels_on_dict_edge_rows(cuda, P, window):
     row's window length (or P, 0 and P // 3 for every row) and
     ``emit_bytes`` on its records; then the whole P-mode encode on the
     card against the CPU path (the chain record path too)."""
-    x, dl, pre_len = dict_encode_inputs(P)
+    x, dl, pre_len = corpus.dict_encode_inputs(P)
     pre_len = {"rows": pre_len, "full": torch.full_like(pre_len, P),
                "none": torch.zeros_like(pre_len),
                "part": torch.full_like(pre_len, P // 3)}[window]
