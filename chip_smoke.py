@@ -154,9 +154,9 @@
    VectorDecoder.decode_batch_unknown with a 96 KB cap (D = 106,496):
    byte-exact, no host re-decode, a truncated block and a cap one byte
    short raise CorruptedBlockError; again with a 1 MB cap (and through
-   codec.decode(max_output_length=)): byte-exact, no host re-decode; a
-   block that decodes to 128 KB raises NotImplementedError naming
-   ROADMAP A4; prints ms per batch;
+   codec.decode(max_output_length=)): byte-exact, no host re-decode, and
+   a block that decodes to 128 KB too (a big block); prints ms per
+   batch;
 19. the facade on the card: codec.wrap, wrap_hc and unwrap round-trip a
    64 KB block, 4 KB of random bytes (stored raw) and an empty buffer;
    codec.encode_hc(mode="strict") and wrap_hc's payload equal
@@ -165,7 +165,41 @@
    ops.encode_vector.encode_batch_chain in P mode equals the sequence
    path's bytes on the 1024 records with the chain path's launches (the
    mark_chain and table_gather gate);
-20. prints one JSON line with the kernels (each with its launches by
+20. the big-block workload: the 16 MB corpus in 16 blocks of 1 MB,
+   compressed by the card's strict encoder, walked on the host
+   (ops.bigblock.scan: fragments, waves, the walk's host time); on
+   fragment wave 2 (each row behind a full 64 KB window, Dt = 172,032)
+   parse_tokens, records_to_state and resolve_wavefront against their
+   plain versions, the resolved bytes against the blocks'; on the 256
+   64 KB segment rows of the blocks (D = 139,264) and on 64 records of
+   96 KB behind the 64 KB dictionary (D = 172,032) bucket_prev,
+   match_lengths (8 offsets at the fast rcap, 24 at HC level 9's),
+   sequence_records (2 and 8 catch-up rounds), emit_bytes and, on the
+   segment rows, hc_tables' run tables against their plain versions;
+21. decodes the 16 blocks through codec.decode_batch (fragment waves):
+   byte-exact, no host re-decode, each decode kernel launched once a
+   wave; prints ms per batch and where the time goes; then through
+   VectorDecoder.decode_batch_unknown with caps of 1 MB and 2 MB
+   (byte-exact, no host re-decode), a cap one byte short and, under a
+   2 MB cap, the first block's corpus.big_bad_blocks (ending on a match,
+   on an empty final literal run, on a giant match), which must raise
+   the host decoder's CorruptedBlockError;
+22. encodes the 16 blocks through compress_blocks_fast and
+   compress_blocks_hc_fast (level 9): no host encode, each kernel
+   launched as the path says (one pass for the 256 segments), the first
+   payload equal to the CPU path's, the first 2 decoded on the host and
+   all on the card; prints ms per batch, the device pass, the peak
+   device memory and the compressed size beside 64 KB-block fast mode's
+   and the reference compressor's;
+23. corpus.big_edge_blocks (giant matches and literal runs, a match tail
+   under 4 bytes, a final literal run on a boundary, an incompressible
+   block) decode, known and unknown length, and encode, fast and HC
+   level 9, both ways with no host decode or encode;
+24. 4 blocks of 1 MB and the 64 records of 96 KB behind the dictionary
+   through compress_blocks_fast_dict (fast and HC level 9) and
+   decompress_blocks_dict: no host encode or decode, the first fast
+   payloads equal to the CPU path's, the first decoded on the host;
+25. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -957,9 +991,9 @@ def chain_phases(torch, card, kernel_row, rows, blocks):
         the bytes shipped as uint8, widened on the card, the payloads
         fetched as bytes."""
         xt = torch.from_numpy(xn).to("cuda").to(torch.int32)
-        out, out_len, ok = fn(xt, torch.tensor(lens, dtype=torch.int32,
-                                                device="cuda"),
-                              D, O, S_cap, ev.hc_rcap(level, D), level)
+        out, out_len, ok, _ = fn(xt, torch.tensor(lens, dtype=torch.int32,
+                                                   device="cuda"),
+                                 D, O, S_cap, ev.hc_rcap(level, D), level)
         out = out.to(torch.uint8).cpu().numpy()
         out_len, ok = out_len.cpu().numpy(), ok.cpu().numpy()
         return [out[j, :int(n)].tobytes() for j, n in enumerate(out_len)], ok
@@ -1327,7 +1361,8 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
             continue
         fail(f"unknown-length decode: {what} did not raise")
     # a cap above 96 KB stays on the card (its pass cut to 96 KB); a
-    # block that decodes to more raises, naming its ROADMAP item
+    # block that decodes to more is walked for its length and decodes as
+    # a big block, on the card too
     big_cap = 1 << 20
     dec.host_decodes = 0
     if dec.decode_batch_unknown(packed, [big_cap] * len(packed)) != blocks \
@@ -1335,18 +1370,13 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
                             device="cuda") != blocks[0]:
         fail(f"unknown-length decode with a {big_cap}-byte cap: blocks "
              f"differ from their source")
+    if dec.decode_batch_unknown([reference.compress_block(
+            data[:2 * BLOCK])], [big_cap]) != [data[:2 * BLOCK]]:
+        fail("unknown-length decode: a block that decodes to 128 KB "
+             "differs from its source")
     if dec.host_decodes != 0:
         fail(f"unknown-length decode with a {big_cap}-byte cap: "
              f"{dec.host_decodes} blocks were re-decoded on the host")
-    try:
-        dec.decode_batch_unknown([reference.compress_block(
-            data[:2 * BLOCK])], [big_cap])
-    except NotImplementedError as exc:
-        if "item 4" not in str(exc):
-            fail(f"a 128 KB block's error names no ROADMAP item: {exc}")
-    else:
-        fail("unknown-length decode: a block that decodes to 128 KB did "
-             "not raise NotImplementedError")
     # in turns: 96 KB cap, 1 MB cap, ...
     walls, big_walls = [], []
     for _ in range(REPS):
@@ -1364,8 +1394,8 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
           f"{cap}-byte cap byte-exact, host_decodes=0, launches {launches}; "
           f"a truncated block and a cap one byte short raise "
           f"CorruptedBlockError; with a {big_cap}-byte cap byte-exact, "
-          f"host_decodes=0, and a 128 KB block raises NotImplementedError "
-          f"(ROADMAP A4); first call {first_ms:.2f} ms, later "
+          f"host_decodes=0, a 128 KB block too (as a big block); first "
+          f"call {first_ms:.2f} ms, later "
           + " ".join(f"{w:.2f}" for w in walls)
           + f"; median {wall:.2f} ms per batch, "
           f"{n_data / wall / 1e6:.4f} GB/s decoded (host clock); with the "
@@ -1421,6 +1451,390 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
           f"decode(max_output_length=) and decode(dictionary=) equal the "
           f"batch paths; encode_batch_chain in P mode equals the sequence "
           f"path on the {B} records, launches {launches}; {card}")
+    return by_path
+
+
+# launches a batch of each big-block path: (path, level) -> counts; the
+# 256 segments of 16 blocks of 1 MB take one device pass
+BIG_BLOCK = 1 << 20             # the big-block workload's block size
+BIG_PATHS = (
+    ("big_fast", 0, {"bucket_prev": 1, "hc_tables": 0, "match_lengths": 1,
+                     "sequence_records": 1, "emit_bytes": 1,
+                     "rowbase_gather": 1}),
+    ("big_hc9", 9, {"bucket_prev": 0, "hc_tables": 0, "match_lengths": 8,
+                    "sequence_records": 1, "emit_bytes": 1,
+                    "rowbase_gather": 1}),
+)
+
+
+def big_phases(torch, card, kernel_row, rows, data, fast_total):
+    """Steps 20-24 of the module docstring: the decode kernels on a
+    fragment wave and the widened encode kernels on big-block segment
+    rows and 96 KB P-mode rows against their plain versions, then
+    big-block decode, unknown-length decode, fast and fast-HC encode,
+    the edge blocks and dictionary big blocks through the engine.
+    Returns the launches by path and kernel."""
+    import numpy as np
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import bigblock
+    from lz4net_tpu_torch.ops import decode_vector as dv
+    from lz4net_tpu_torch.ops import encode_vector as ev
+    from lz4net_tpu_torch.ops import (emit_kernel, fused_gather, hash_kernel,
+                                      mlen_kernel, parse_kernel,
+                                      records_kernel, resolve_kernel,
+                                      seq_kernel)
+    from lz4net_tpu_torch.utils import corpus
+
+    # ---- workload: the 16 MB in 16 blocks of 1 MB ----------------------
+    big = corpus.split_blocks(data, BIG_BLOCK)
+    lens = [len(b) for b in big]
+    n_data = sum(lens)
+    t = time.perf_counter()
+    packed = cuda_engine.compress_blocks(big, device="cuda")
+    strict_ms = (time.perf_counter() - t) * 1e3
+    strict_total = sum(map(len, packed))
+    t = time.perf_counter()
+    scans = [bigblock.scan(p) for p in packed]
+    scan_ms = (time.perf_counter() - t) * 1e3
+    if any(s is None or s[2] != n for s, n in zip(scans, lens)):
+        fail("the header walk does not give each 1 MB block's length")
+    frags = [bigblock.split_fragments(p, n, s)
+             for p, n, s in zip(packed, lens, scans)]
+    n_frag, waves = sum(map(len, frags)), max(map(len, frags))
+    print(f"big-block workload: {len(big)} blocks of {BIG_BLOCK} bytes, "
+          f"compressed on the card by the strict encoder (compress_blocks) "
+          f"to {strict_total} bytes in {strict_ms:.1f} ms; header walk "
+          f"(bigblock.scan) {scan_ms:.2f} ms on the host for the 16 blocks, "
+          f"{scan_ms / len(big):.2f} ms a block; {n_frag} fragments in "
+          f"{waves} waves, {sum(len(s[3]) for s in scans)} giant sequences")
+
+    # ---- per-kernel phase: the decode kernels on fragment wave 2 --------
+    # each row behind a full 64 KB window of its block's output; D for a
+    # fragment of 96 KB, the most a wave can hold: Dt = 172,032
+    i4 = 4
+    w = 2
+    fr = [f[w][0] for f in frags]
+    o0s = [f[w][1] for f in frags]
+    spans = [f[w][2] for f in frags]
+    windows = [b[max(0, o - P64):o] for b, o in zip(big, o0s)]
+    comp_np, cl_np, ol_np, C, _ = dv.pack_blocks(fr, spans)
+    comp, comp_len, out_len = dv.batch_from_numpy(comp_np, cl_np, ol_np,
+                                                  "cuda")
+    pre_np, pl_np, P = dv.pack_windows(windows, len(fr))
+    pre = torch.from_numpy(pre_np).to("cuda").to(torch.int32)
+    pre_len = torch.from_numpy(pl_np).to("cuda")
+    Bw, Dt = len(fr), P + 13 * dv.CH
+    n_comp = int(comp_len.sum())
+    tag = f"fragment wave {w}, B={Bw}, C={C}"
+    mark, ll, ml, _ = kernel_row(
+        "parse_tokens", "", "", parse_kernel,
+        lambda: parse_kernel.parse_tokens(comp, comp_len, C),
+        lambda: parse_kernel.parse_tokens_reference(comp, comp_len, C),
+        n_bytes=n_comp * i4 + Bw * C * i4 * 3 + Bw * i4 + Bw,
+        n_ops=Bw * C * 30, variant=tag)
+    t0m, cidx, stats = kernel_row(
+        "records_to_state", "", "", records_kernel,
+        lambda: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P),
+        lambda: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P),
+        n_bytes=Bw * C * i4 + 3 * n_comp * i4 + 3 * Bw * i4
+        + 2 * Bw * Dt * i4 + Bw * 8 * i4,
+        n_ops=Bw * C * 30 + Bw * Dt * 20,
+        variant=f"{tag}, P={P}, Dt={Dt}")
+    if not bool((stats[:, 2] == 1).all()) \
+            or stats[:, 4].tolist() != spans:
+        fail("a fragment of wave 2 is not certified at its span")
+    lit = torch.cummax(torch.where(cidx >= 0, cidx.clamp(0, C - 1), 0),
+                       dim=1).values
+    vals, _ = fused_gather.rowbase_gather(comp, lit)
+    T0 = torch.where(cidx >= 0, dv.VFLAG | (vals & 0xFF), t0m)
+    T0[:, :P] = dv.VFLAG | pre
+    res, _ok = kernel_row(
+        "resolve_wavefront", "", "", resolve_kernel,
+        lambda: resolve_kernel.resolve_wavefront(T0, P // dv.CH),
+        lambda: resolve_kernel.resolve_wavefront_reference(T0, P // dv.CH),
+        n_bytes=Bw * Dt * i4 * 2 + Bw, n_ops=Bw * Dt * 6,
+        variant=f"{tag}, start_chunk={P // dv.CH}, Dt={Dt}")
+    got = res[:, P:].to(torch.uint8).cpu().numpy()
+    if any(got[j, :n].tobytes() != b[o:o + n]
+           for j, (b, o, n) in enumerate(zip(big, o0s, spans))):
+        fail("fragment wave 2 does not resolve to its blocks' bytes")
+    del comp, mark, ll, ml, t0m, cidx, lit, vals, T0, res
+
+    # ---- per-kernel phase: the widened encode kernels -------------------
+    # the 256 segment rows of the 16 blocks (D = 139,264), then 64
+    # records of 96 KB behind the 64 KB dictionary (D = 172,032)
+    dictionary = b"".join(corpus.split_blocks(data, RECORD)[0::256])
+    recs96 = corpus.split_blocks(data[:64 * 96 * 1024], 96 * 1024)
+    xn, sl, spl, P, D, O, S_cap = ev.segment_rows(big, ev.big_segments(big))
+    x96, dl96, pl96, P96, D96, O96, S96 = ev.window_rows(recs96,
+                                                         dictionary)
+    if (P, D, P96, D96) != (P64, 139264, P64, 172032):
+        fail(f"the wide rows' shapes are P={P}, D={D}, P={P96}, D={D96}")
+    seg_x = None
+    for xn_, dln, pln, D_, O_, S_, what in (
+            (xn, sl, spl, D, O, S_cap, "segment rows"),
+            (x96, dl96, pl96, D96, O96, S96, "96 KB P-mode rows")):
+        x = torch.from_numpy(xn_).to("cuda").to(torch.int32)
+        dl = torch.from_numpy(dln).to("cuda")
+        pl = torch.from_numpy(pln).to("cuda")
+        B, SR = x.shape[0], seq_kernel.slot_width(S_)
+        tag = f"{what}, B={B}, D={D_}"
+        u32 = ev._u32(x)
+        us4 = ev._shift_left(u32, 4)
+        h4, h8 = hash_kernel.hash_bucket(u32), hash_kernel.hash_bucket8(
+            u32, us4)
+        prev = kernel_row(
+            "bucket_prev", "", "", hash_kernel,
+            lambda: hash_kernel.bucket_prev(u32, us4, h4, h8, D_),
+            lambda: hash_kernel.bucket_prev_reference(u32, us4, h4, h8, D_),
+            n_bytes=5 * B * D_ * i4, n_ops=B * D_ * 30, plain_reps=1,
+            variant=tag, split=True)
+        if seg_x is None:
+            # the suffix tiers' run tables (HC levels 1-7 on big blocks)
+            run_fwd, is_rs = ev._byte_runs(x)
+            _, hs, sticky, nrows = hash_kernel.hc_streams(
+                x, u32, us4, is_rs, run_fwd, "runs")
+            hargs = (u32, hs, sticky, nrows, D_)
+            kernel_row(
+                "hc_tables", "", "", hash_kernel,
+                lambda: hash_kernel.hc_tables(*hargs),
+                lambda: hash_kernel.hc_tables_reference(*hargs),
+                n_bytes=(1 + 2 * len(hs)) * B * D_ * i4,
+                n_ops=B * D_ * len(hs) * 10, plain_reps=1,
+                counter="hc_launches", variant=tag + ", 3 run tables")
+            del run_fwd, is_rs, hs, hargs
+            seg_x = (x, dl, pl, D_, O_, S_)
+        off = torch.arange(D_, dtype=torch.int32, device="cuda") - prev
+        far = (prev >= 0) & (off <= 65535) & (off > 4)
+        i = torch.arange(D_, dtype=torch.int32, device="cuda")
+        for K, sub, rcap, rounds in (
+                (ev.TOP_OFFSETS, ev.SUB_STEP, ev.RCAP, ev.CU_ROUNDS),
+                (ev.HC_TOP_OFFSETS, ev.HC_SUB_STEP, ev.hc_rcap(9, D_),
+                 ev.HC_CU_ROUNDS)):
+            dks = ev._top_offsets_select(off, far, K, sub)
+            margs = (x, u32, prev, torch.zeros_like(prev), dks, P + dl, dl,
+                     D_, rcap)
+            matched, off_all, mlen_all = kernel_row(
+                "match_lengths", "", "", mlen_kernel,
+                lambda: mlen_kernel.match_lengths_fused(*margs),
+                lambda: mlen_kernel.match_lengths_reference(*margs),
+                n_bytes=6 * B * D_ * i4 + B * K * i4 + 2 * B * i4,
+                n_ops=B * D_ * 40, plain_reps=1,
+                variant=f"{tag}, K={K}, rcap={rcap}")
+            matched = matched * ((i >= P) & (off_all <= i - (P - pl[:, None])))
+            sargs = (u32, matched, off_all, mlen_all, P + dl, pl, D_, S_, P,
+                     rounds)
+            recs = kernel_row(
+                "sequence_records", "", "", seq_kernel,
+                lambda: seq_kernel.sequence_records(*sargs),
+                lambda: seq_kernel.sequence_records_reference(*sargs),
+                n_bytes=lambda got: B * D_ * i4 + int(got[5][:, 0].sum())
+                * i4 * (2 + 2 * rounds) + 5 * B * SR * i4 + B * 8 * i4
+                + 2 * B * i4,
+                n_ops=B * D_ * 20, plain_reps=1,
+                variant=f"{tag}, cu_rounds={rounds}, on K={K}")
+            if not bool((recs[0][:, 1:] >= recs[0][:, :-1]).all()):
+                fail(f"sequence_records ({tag}): s0 decreases")
+            eargs = (*recs[:5], recs[5][:, 2].contiguous(), O_)
+            kernel_row(
+                "emit_bytes", "", "", emit_kernel,
+                lambda: emit_kernel.emit_bytes(*eargs),
+                lambda: emit_kernel.emit_bytes_reference(*eargs),
+                n_bytes=5 * int((recs[5][:, 1] + 1).sum()) * i4
+                + 2 * B * O_ * i4 + B * i4,
+                n_ops=B * O_ * 20, plain_reps=1,
+                variant=f"{tag}, O={O_}, on K={K}")
+        del u32, us4, h4, h8, prev, off, far, matched, off_all, mlen_all
+        del recs
+    x96 = xn = None
+
+    # ---- slice phase: big-block decode ---------------------------------
+    dec = cuda_engine.decoder("cuda")
+    by_path = {}
+
+    def decode_call():
+        return codec.decode_batch(packed, lens, device="cuda")
+
+    dec.host_decodes = 0
+    got, first_ms, launches = first_call(torch, rows, decode_call,
+                                         DECODE_KERNELS)
+    by_path["big_decode"] = launches
+    if got != big:
+        fail("big-block decode: blocks differ from their source")
+    if dec.host_decodes != 0:
+        fail(f"big-block decode: {dec.host_decodes} fragments were "
+             f"re-decoded on the host")
+    if any(n != waves for n in launches.values()):
+        fail(f"big-block decode: launches {launches}, one a wave ({waves}) "
+             f"expected")
+    walls = host_walls(torch, decode_call, 3)
+    wall = statistics.median(walls)
+    print(f"big_decode slice: {len(big)} blocks of 1 MB byte-exact through "
+          f"codec.decode_batch, host_decodes=0, {n_frag} fragments in "
+          f"{waves} waves, launches {launches}; first call {first_ms:.1f} "
+          f"ms, later " + " ".join(f"{w_:.1f}" for w_ in walls)
+          + f"; median {wall:.1f} ms, {n_data / wall / 1e6:.4f} GB/s decoded "
+          f"(host clock, end to end), of which the header walk "
+          f"{scan_ms:.1f} ms; {card}")
+    where_the_time_goes(torch, decode_call, "big_decode", n_data, "decoded",
+                        card)
+
+    # unknown length: caps of 1 MB and 2 MB exact, a short cap raises
+    dec.host_decodes = 0
+    for cap in (BIG_BLOCK, 2 * BIG_BLOCK):
+        if dec.decode_batch_unknown(packed, [cap] * len(packed)) != big:
+            fail(f"big-block unknown-length decode with a {cap}-byte cap: "
+                 f"blocks differ from their source")
+    if dec.host_decodes != 0:
+        fail(f"big-block unknown-length decode: {dec.host_decodes} blocks "
+             f"were re-decoded on the host")
+    try:
+        dec.decode_batch_unknown([packed[0]], [lens[0] - 1])
+    except reference.CorruptedBlockError:
+        pass
+    else:
+        fail("big-block unknown-length decode: a cap one byte short did "
+             "not raise")
+    # blocks the header walk takes and the hardened decoder refuses
+    for name, bad in corpus.big_bad_blocks(packed[0]):
+        try:
+            reference.decompress_block_unknown(bad, 2 * BIG_BLOCK)
+        except reference.CorruptedBlockError as e:
+            want = str(e)
+        else:
+            fail(f"big-block unknown-length decode: the host decoder took "
+                 f"{name}")
+        try:
+            dec.decode_batch_unknown([bad], [2 * BIG_BLOCK])
+        except reference.CorruptedBlockError as e:
+            if str(e) != want:
+                fail(f"big-block unknown-length decode: {name} raised "
+                     f"{e!r}, the host decoder {want!r}")
+        else:
+            fail(f"big-block unknown-length decode: {name} did not raise")
+    walls = host_walls(torch, lambda: dec.decode_batch_unknown(
+        packed, [2 * BIG_BLOCK] * len(packed)), 3)
+    print(f"big_unknown slice: caps of 1 MB and 2 MB byte-exact, "
+          f"host_decodes=0, a cap one byte short and the first block's "
+          f"big_bad_blocks raise the host decoder's CorruptedBlockError; "
+          f"2 MB cap "
+          + " ".join(f"{w_:.1f}" for w_ in walls)
+          + f" ms (host clock); {card}")
+
+    # ---- slice phases: big-block fast and fast-HC encode ---------------
+    enc = cuda_engine.encoder("cuda")
+    x, dl, pl, D, O, S_cap = seg_x
+    for path, level, want in BIG_PATHS:
+        def call():
+            if level == 0:
+                return cuda_engine.compress_blocks_fast(big, device="cuda")
+            return cuda_engine.compress_blocks_hc_fast(big, level=level,
+                                                       device="cuda")
+
+        enc.host_encodes = 0
+        torch.cuda.reset_peak_memory_stats()
+        got, first_ms, launches = first_call(torch, rows, call, want)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        by_path[path] = launches
+        if enc.host_encodes != 0:
+            fail(f"{path}: {enc.host_encodes} blocks were encoded on the "
+                 f"host")
+        if launches != want:
+            fail(f"{path}: launches {launches}, the path makes {want}")
+        if got[0] != ev.VectorEncoder("cpu").encode_batch(
+                big[:1], hc_level=level)[0]:
+            fail(f"{path}: the first payload differs from the CPU path's")
+        if [reference.decompress_block(p, n) for p, n in zip(got[:2],
+                                                             lens)] \
+                != big[:2]:
+            fail(f"{path}: the first 2 blocks do not decode on the host")
+        dec.host_decodes = 0
+        if codec.decode_batch(got, lens, device="cuda") != big \
+                or dec.host_decodes:
+            fail(f"{path}: blocks do not decode to their source on the "
+                 f"card without the host")
+        total = sum(map(len, got))
+        walls = host_walls(torch, call, 3)
+        wall = statistics.median(walls)
+        dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
+            x, dl, D, O, S_cap, ev.hc_rcap(level, D), level, None, P64, pl),
+            inner=3)
+        print(f"{path} slice (level {level}): {len(big)} blocks of 1 MB, "
+              f"256 segment rows, host_encodes=0, launches {launches}, the "
+              f"first payload equals the CPU path's, every block decodes on "
+              f"the card (first 2 on the host too), peak device memory "
+              f"{peak:.2f} GiB; {total} compressed bytes "
+              f"({total / n_data:.4f} of input) against {fast_total} "
+              f"({fast_total / n_data:.4f}) from fast mode in 64 KB blocks "
+              f"and {strict_total} ({strict_total / n_data:.4f}) from the "
+              f"reference compressor in 1 MB blocks; first call "
+              f"{first_ms:.1f} ms, later "
+              + " ".join(f"{w_:.1f}" for w_ in walls)
+              + f"; median {wall:.1f} ms, {n_data / wall / 1e6:.4f} GB/s of "
+              f"input (host clock, end to end); device pass {dev_ms:.3f} "
+              f"ms, {n_data / dev_ms / 1e6:.3f} GB/s; {card}")
+        if level == 0:
+            where_the_time_goes(torch, call, "big_fast", n_data, "of input",
+                                card)
+    del x, dl, pl, seg_x
+
+    # ---- slice phase: the edge blocks both ways -------------------------
+    edge = corpus.big_edge_blocks(SEED)
+    datas = [d for _, d, _ in edge]
+    elens = [len(d) for d in datas]
+    dec.host_decodes = enc.host_encodes = 0
+    if dec.decode_batch([b for *_, b in edge], elens) != datas \
+            or dec.decode_batch_unknown([b for *_, b in edge],
+                                        [BIG_BLOCK] * len(edge)) != datas:
+        fail("big_edge_blocks: a hand-made block does not decode to its "
+             "bytes")
+    for level in (0, 9):
+        eg = enc.encode_batch(datas, hc_level=level)
+        if dec.decode_batch(eg, elens) != datas:
+            fail(f"big_edge_blocks: level {level} payloads do not decode")
+    if dec.host_decodes or enc.host_encodes:
+        fail("big_edge_blocks: host decodes or encodes")
+    print(f"big_edge slice: {', '.join(n for n, *_ in edge)} decode "
+          f"(known and unknown length) and encode (fast and HC level 9) "
+          f"both ways, no host decode or encode")
+
+    # ---- slice phase: big blocks and 96 KB records with a dictionary ----
+    for what, batch, n_cpu in (("4 blocks of 1 MB", big[:4], 1),
+                               ("64 records of 96 KB", recs96, 2)):
+        blens = [len(b) for b in batch]
+        for level in (0, 9):
+            dec.host_decodes = enc.host_encodes = 0
+            t = time.perf_counter()
+            got = cuda_engine.compress_blocks_fast_dict(
+                batch, dictionary, level=level, device="cuda")
+            ms = (time.perf_counter() - t) * 1e3
+            if enc.host_encodes:
+                fail(f"dictionary {what}, level {level}: host encodes")
+            if level == 0 and got[:n_cpu] != ev.VectorEncoder(
+                    "cpu").encode_batch(batch[:n_cpu],
+                                        dictionary=dictionary):
+                fail(f"dictionary {what}: the first payloads differ from "
+                     f"the CPU path's")
+            if reference.decompress_block_dict(got[0], dictionary,
+                                               blens[0]) != batch[0] \
+                    or cuda_engine.decompress_blocks_dict(
+                        got, blens, dictionary, "cuda") != batch \
+                    or dec.host_decodes:
+                fail(f"dictionary {what}, level {level}: payloads do not "
+                     f"decode to their source")
+            print(f"big_dict slice: {what} behind the {len(dictionary)}-"
+                  f"byte dictionary, level {level}: host_encodes=0, "
+                  + ("the first payloads equal the CPU path's, "
+                     if level == 0 else "")
+                  + f"decoded on the card with host_decodes=0 and the "
+                  f"first on the host; {sum(map(len, got))} bytes "
+                  f"({sum(map(len, got)) / sum(blens):.4f}); first call "
+                  f"{ms:.1f} ms (host clock); {card}")
     return by_path
 
 
@@ -1957,9 +2371,12 @@ def main() -> int:
     chain_launches = chain_phases(torch, card, kernel_row, rows, blocks)
     dict_launches = dict_phases(torch, card, kernel_row, rows, data, blocks,
                                 packed)
+    big_launches = big_phases(torch, card, kernel_row, rows, data,
+                              fast_total)
     paths = [("decode", launches), ("encode", enc_launches),
              *strict_launches.items(), *hc_launches.items(),
-             *chain_launches.items(), *dict_launches.items()]
+             *chain_launches.items(), *dict_launches.items(),
+             *big_launches.items()]
     for row in rows:
         del row["module"], row["counter"]
         by_path = {path: counts[row["name"]] for path, counts in paths

@@ -35,7 +35,7 @@ SIGNATURES = {
     "lz4t_rowbase_gather": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_resolve_wavefront": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_bucket_prev": [_P] * 6 + [_I, _I, _P],
-    "lz4t_match_lengths": [_P] * 10 + [_I] * 5 + [_P],
+    "lz4t_match_lengths": [_P] * 11 + [_I] * 5 + [_P],
     "lz4t_sequence_records": [_P] * 13 + [_I] * 6 + [_P],
     "lz4t_emit_bytes": [_P] * 8 + [_I, _I, _I, _P],
     "lz4t_hc_tables": [_P] * 4 + [_I] * 3 + [_P],

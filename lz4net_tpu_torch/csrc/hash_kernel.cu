@@ -24,7 +24,7 @@
 //      not for a compare per window position;
 //   2. bucket_tables_kernel, one CTA per block, walks the block's chunks
 //      in order, one thread per chunk position.  A table word holds
-//      position + 1, the chunk's hits and a 5-bit fingerprint of the
+//      position + 1, the chunk's hits and a 4-bit fingerprint of the
 //      position's word: a plain read gives the entry as of the chunk
 //      start, one shared-memory atomicAdd counts the hit.  The entry's
 //      word is read from wa in device memory only where it could decide
@@ -42,6 +42,8 @@
 // tables are read at random banks of shared memory (a few-way bank
 // conflicts a warp access), which with the table walk's two barriers a
 // chunk, 144 chunks a block in sequence, is what the time is spent on.
+// Wide rows take the table walk's chunks in series: 1.04 ms on 256 rows
+// of 139,264 (272 chunks a block), 0.58 ms on 64 rows of 172,032.
 // The first form compared every word of the window, up to 255 a
 // position, and kept 192 KB of tables and counts, one CTA an SM.
 #include "common.cuh"
@@ -53,13 +55,14 @@ constexpr int LANE = 128;
 constexpr int CHUNK = 4 * LANE;   // threads per CTA; D is a multiple
 constexpr int NB = 8192;          // buckets per table
 constexpr int TABLE_SMEM = 2 * NB * 4;
-// A table word: position + 1 (0 = empty) in bits 0-16, the chunk's hits
-// in bits 17-26 (at most 512), a 5-bit fingerprint of the position's word
-// in bits 27-31; D < 2^17
-constexpr int POS_BITS = 17;
+// A table word: position + 1 (0 = empty) in bits 0-17, the chunk's hits
+// in bits 18-27 (at most 512), a 4-bit fingerprint of the position's word
+// in bits 28-31 (it only spares reads of words that cannot agree, so prev
+// does not depend on its width); D < 2^18
+constexpr int POS_BITS = 18;
 constexpr unsigned POS_MASK = (1u << POS_BITS) - 1;
 constexpr unsigned HIT = 1u << POS_BITS;   // one hit of the chunk
-constexpr int FP_SHIFT = 27;
+constexpr int FP_SHIFT = 28;
 constexpr unsigned ENTRY = POS_MASK | (~0u << FP_SHIFT);  // all but hits
 
 __device__ __forceinline__ unsigned fingerprint(int a) {

@@ -29,8 +29,15 @@
 //      (__ffs) and no scan.  Then the end rules and the outputs of the
 //      group's positions.
 //
-// Shared memory: the block's bytes and a class byte a position (2 x D),
-// and G break bitmasks of D / 32 + D / 1024 + 4 words each.
+// Shared memory: the block's bytes (D), a class byte a position (D) where
+// it fits, and G break bitmasks of D / 32 + D / 1024 + D / 32768 words
+// (rounded up) each.  The launcher keeps the class bytes in shared memory
+// where the bytes, the classes and one bitmask fit the card's opt-in
+// (rows up to 106,496 positions on the H100, the main paths' 73,728
+// among them); wider rows (a 64 KB segment or a 96 KB block behind a
+// 64 KB window: 139,264 and 172,032 positions) keep them in a device
+// scratch row instead, written once in phase 1 and read once a group in
+// phase 2, and spend the room on bitmasks.
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
 // section 6, kernel table): 0.45 ms at the fast path's shape and
@@ -41,7 +48,10 @@
 // SM (147 KB of bytes and classes) runs the batch in two waves; a
 // block's time is phase 1's tiles (the extension rounds of up to rcap
 // survivors, 10 dependent word compares each) and, with 24 offsets, four
-// groups of bitmasks.  A later design could drop the
+// groups of bitmasks.  Wide rows hold 2-5 bitmasks a group (D = 172,032:
+// 2), so 24 offsets take up to 14 groups: 0.89 ms (8 offsets) and 1.42
+// ms (24, rcap 34,816) on 256 rows of 139,264, 0.54 and 1.02 ms on 64
+// rows of 172,032, 3.5-13x their bytes.  A later design could drop the
 // class bytes (recompute them from prev in phase 2) to fit two CTAs an
 // SM, and build a group's bitmasks with fewer instructions (a lane a
 // 32-bit word instead of three shuffles a word).
@@ -126,8 +136,9 @@ mlen_kernel(const int* __restrict__ x_all, const int* __restrict__ prev_all,
             const int* __restrict__ m8_all, const int* __restrict__ dks_all,
             const int* __restrict__ end_abs_all,
             const int* __restrict__ blk_len_all, int* __restrict__ matched_all,
-            int* __restrict__ off_all, int* __restrict__ mlen_all, int D,
-            int K, int rcap, int ext_rounds, int G) {
+            int* __restrict__ off_all, int* __restrict__ mlen_all,
+            uint8_t* __restrict__ cls_all, int D, int K, int rcap,
+            int ext_rounds, int G) {
   __shared__ int s_d[NCLS];          // offset of each class (0 = unused)
   __shared__ uint32_t s_dmap[DMAP / 32];   // may a far offset be dominant
   __shared__ int s_wcount[2][WARPS]; // survivors a warp, tiles by parity
@@ -136,14 +147,16 @@ mlen_kernel(const int* __restrict__ x_all, const int* __restrict__ prev_all,
   __shared__ unsigned s_used;        // classes that occur in the block
   extern __shared__ uint32_t smem[];
   const int n0 = D >> 5, n1 = D >> 10, n2 = (n1 + 31) >> 5;
-  const int mask_words = n0 + n1 + 4;
+  const int mask_words = n0 + n1 + n2;
   uint32_t* masks = smem;                      // G x mask_words
   uint32_t* sw = smem + G * mask_words;        // the bytes, as words
-  uint8_t* cls = (uint8_t*)(sw + (D + PAD) / 4);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const size_t row = (size_t)b * D;
+  // the class bytes: in shared memory after the bytes, or the block's
+  // row of the device scratch
+  uint8_t* cls = cls_all ? cls_all + row : (uint8_t*)(sw + (D + PAD) / 4);
   const int4* x4 = (const int4*)(x_all + row);
   const int4* prev4 = (const int4*)(prev_all + row);
   const int4* m84 = (const int4*)(m8_all + row);
@@ -351,12 +364,15 @@ mlen_kernel(const int* __restrict__ x_all, const int* __restrict__ prev_all,
 }  // namespace
 }  // namespace lz4t
 
+// cls_scratch: B x D bytes of device memory for the class bytes of rows
+// too wide to keep them in shared memory (unused otherwise)
 extern "C" int lz4t_match_lengths(const void* x, const void* u32,
                                   const void* prev, const void* m8,
                                   const void* dks, const void* end_abs,
                                   const void* blk_len, void* matched,
-                                  void* off, void* mlen, int B, int D, int K,
-                                  int rcap, int ext_rounds, void* stream) {
+                                  void* off, void* mlen, void* cls_scratch,
+                                  int B, int D, int K, int rcap,
+                                  int ext_rounds, void* stream) {
   (void)u32;   // the words are assembled from x's bytes
   if (B <= 0) return 0;
   if (K > lz4t::MAX_TOP || D % lz4t::TILE) return (int)cudaErrorInvalidValue;
@@ -368,8 +384,12 @@ extern "C" int lz4t_match_lengths(const void* x, const void* u32,
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lz4t::mlen_kernel);
   if (err != cudaSuccess) return (int)err;
-  const int fixed = 2 * D + lz4t::PAD;
-  const int mask_bytes = 4 * (D / 32 + D / 1024 + 4);
+  const int n1 = D / 1024;
+  const int mask_bytes = 4 * (D / 32 + n1 + (n1 + 31) / 32);
+  // the class bytes stay in shared memory where they and one bitmask fit
+  const bool cls_shared =
+      (int)attr.sharedSizeBytes + 2 * D + lz4t::PAD + mask_bytes <= optin;
+  const int fixed = (cls_shared ? 2 * D : D) + lz4t::PAD;
   const int room = optin - (int)attr.sharedSizeBytes - fixed;
   int G = room / mask_bytes;
   if (G > 4 + K) G = 4 + K;
@@ -381,6 +401,7 @@ extern "C" int lz4t_match_lengths(const void* x, const void* u32,
   lz4t::mlen_kernel<<<B, lz4t::THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)x, (const int*)prev, (const int*)m8, (const int*)dks,
       (const int*)end_abs, (const int*)blk_len, (int*)matched, (int*)off,
-      (int*)mlen, D, K, rcap, ext_rounds, G);
+      (int*)mlen, cls_shared ? nullptr : (uint8_t*)cls_scratch, D, K, rcap,
+      ext_rounds, G);
   return (int)cudaGetLastError();
 }

@@ -55,7 +55,10 @@
 // not a step a token; the rest is warp-wide work, a few dozen shuffles
 // a position, which with two CTAs an SM is what the time is spent on.
 // The CTA needs about 19 KB of shared memory, nothing in proportion to
-// D, so every block of a 256-block batch is resident at once.  The first
+// D, so every block of a 256-block batch is resident at once.  Rows of
+// up to 172,032 positions (a 96 KB block behind a 64 KB window; S_cap
+// 43,264, SR 49,152) keep every position, slot, group count and output
+// start far below BIGKEY and int range.  The first
 // form of this kernel built a next-match table and the chain in
 // device memory and walked it on one thread, 2 bytes of shared memory a
 // position.

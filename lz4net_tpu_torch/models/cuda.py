@@ -17,7 +17,10 @@ one vector decoder and one vector encoder per device are kept, so their
 Decode runs the vector decoder, as on the TPU; the sequencer decoder
 (``ops.decode_sequencer.SequencerDecoder``, which the JAX package picks
 off the TPU or by ``LZ4NET_TPU_DECODER``) is called directly by what
-needs its status check.
+needs its status check.  Every entry point takes blocks of any size:
+decode runs a block over 96 KB as waves of fragments of at most 96 KB
+(one device pass a wave for the batch), fast and fast-HC encode as 64 KB
+segments (one device pass for the segments of the batch).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def decompress_block(src: bytes, output_length: int, device="cuda") -> bytes:
 
 
 def decompress_blocks(blocks, out_lens, device="cuda"):
-    """Batched known-length decode, one device pass for the batch."""
+    """Batched known-length decode, one device pass for the blocks of
+    at most 96 KB and one a fragment wave for the bigger ones."""
     return decoder(device).decode_batch(list(blocks), list(out_lens))
 
 
@@ -101,7 +105,8 @@ def compress_blocks(blocks, dst_maxlens=None, device="cuda"):
 
 
 def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):
-    """Batched fast greedy encode, one device pass for the batch.
+    """Batched fast greedy encode, one device pass for the blocks of at
+    most 96 KB and one for the 64 KB segments of the bigger ones.
 
     The payloads are format-valid LZ4 blocks that every decoder reads,
     byte-identical to the JAX vector encoder's, not the reference

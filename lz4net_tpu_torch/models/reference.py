@@ -16,11 +16,15 @@ needs:
   ``compress_block_hc_dict`` (:368), which strict dictionary encode runs
   on and to which the dictionary encoder sends the blocks the device
   flags, and ``decompress_block_dict`` (:380), which re-decodes the
-  dictionary blocks the device cannot certify;
+  dictionary blocks the device cannot certify, and
+  ``decompress_fragment`` (``models/native.py:269`` there), which
+  re-decodes the big-block fragments the device cannot certify;
 * ``decompress_block_unknown`` (:526 there), the hardened
   unknown-output-length decoder: the unknown-length path re-decodes
   with it every block the device cannot certify, and it raises the
-  reference's errors for malformed input.
+  reference's errors for malformed input; ``unknown_output_length``
+  walks its headers alone, for the length a block over 96 KB decodes
+  to, or its error.
 
 It is scalar Python on purpose: clarity and bit-exactness over speed.
 """
@@ -502,18 +506,82 @@ def decompress_block_dict(src, dictionary: bytes, output_length: int) -> bytes:
     return bytes(dst[dict_len:])
 
 
-def decompress_block_unknown(src, max_output_length: int) -> bytes:
-    """Unknown-output-length decode — the hardened, fully bounds-checked
-    variant (reference `LZ4_uncompress_unknownOutputSize`,
-    `Safe64.Dirty.cs:665-798`).  Consumes the whole input and returns the
-    decoded bytes (up to ``max_output_length``)."""
-    src = bytes(src)
+def decompress_fragment(src, window: bytes, out_len: int) -> bytes:
+    """Decode a fragment of a big block (``ops/bigblock.py``): exactly
+    ``out_len`` bytes behind ``window``, bounds-checked, without the
+    block-end rules (a fragment ends wherever its segment ends, often on
+    a match, with an empty final literal run appended).  The JAX
+    package's ``models/native.decompress_fragment``
+    (``lz4_oracle.cpp:decompress_fragment_core``).  Raises
+    CorruptedBlockError for malformed input or another length."""
+    src, window = bytes(src), bytes(window)
+    if out_len == 0:
+        return b""
+    dst = bytearray(window)
+    dict_len = len(window)
+    dst_end = dict_len + out_len
+    n = len(src)
+    sp = 0
+    while sp < n:
+        token = src[sp]
+        sp += 1
+        length = token >> ML_BITS
+        if length == RUN_MASK:
+            while True:
+                if sp >= n:
+                    raise CorruptedBlockError("truncated literal length")
+                b = src[sp]
+                sp += 1
+                length += b
+                if b != 255:
+                    break
+        if sp + length > n or len(dst) + length > dst_end:
+            raise CorruptedBlockError("literal run overruns the fragment")
+        dst += src[sp:sp + length]
+        sp += length
+        if sp == n:
+            break                       # the final literal run
+        if sp + 2 > n:
+            raise CorruptedBlockError("truncated match offset")
+        offset = src[sp] | (src[sp + 1] << 8)
+        sp += 2
+        ref = len(dst) - offset
+        if ref < 0 or offset == 0:
+            raise CorruptedBlockError("match offset outside window")
+        mlen = token & ML_MASK
+        if mlen == ML_MASK:
+            while True:
+                if sp >= n:
+                    raise CorruptedBlockError("truncated match length")
+                b = src[sp]
+                sp += 1
+                mlen += b
+                if b != 255:
+                    break
+        mlen += MINMATCH
+        if len(dst) + mlen > dst_end:
+            raise CorruptedBlockError("match overruns the fragment")
+        _copy_match(dst, ref, mlen)
+    if len(dst) != dst_end:
+        raise CorruptedBlockError(
+            f"fragment decode: {len(dst) - dict_len} != {out_len}")
+    return bytes(dst[dict_len:])
+
+
+def _unknown_sequences(src: bytes, max_output_length: int):
+    """The hardened decoder's walk over the sequence headers of ``src``
+    (reference `LZ4_uncompress_unknownOutputSize`,
+    `Safe64.Dirty.cs:665-798`): yields (literal start, literal length,
+    match offset, match length) for each sequence, offset and match
+    length 0 for the final literal run, checking every rule of that
+    decoder on the lengths alone; raises CorruptedBlockError where it
+    does."""
     src_end = len(src)
     if src_end == 0:
         raise CorruptedBlockError("empty input")
 
-    dst = bytearray()
     sp = 0
+    dp = 0                              # the decoded length so far
     dst_end = max_output_length
     dst_mflimit = dst_end - MFLIMIT
     dst_lastlits = dst_end - LASTLITERALS
@@ -533,22 +601,21 @@ def decompress_block_unknown(src, max_output_length: int) -> bytes:
                     sp += 1
                     length += b
 
-            lit_end = len(dst) + length
+            lit_end = dp + length
             if lit_end > dst_mflimit or sp + length > src_last3:
                 if lit_end > dst_end:
                     raise CorruptedBlockError("output overflow")
                 if sp + length != src_end:
                     raise CorruptedBlockError(
                         "input not fully consumed at terminal run")
-                dst += src[sp:sp + length]
-                break
-            dst += src[sp:sp + length]
+                yield sp, length, 0, 0
+                return
+            lit = sp
             sp += length
 
             offset = src[sp] | (src[sp + 1] << 8)
             sp += 2
-            ref = len(dst) - offset
-            if ref < 0 or offset == 0:
+            if lit_end - offset < 0 or offset == 0:
                 raise CorruptedBlockError("match offset outside block")
 
             mlen = token & ML_MASK
@@ -561,14 +628,36 @@ def decompress_block_unknown(src, max_output_length: int) -> bytes:
                         break
             mlen += MINMATCH
 
-            if len(dst) + mlen > dst_lastlits:
+            if lit_end + mlen > dst_lastlits:
                 raise CorruptedBlockError(
                     "match extends into last-5-literals zone")
-            _copy_match(dst, ref, mlen)
+            yield lit, length, offset, mlen
+            dp = lit_end + mlen
     except IndexError as exc:
         raise CorruptedBlockError("truncated input") from exc
 
+
+def decompress_block_unknown(src, max_output_length: int) -> bytes:
+    """Unknown-output-length decode — the hardened, fully bounds-checked
+    variant (reference `LZ4_uncompress_unknownOutputSize`,
+    `Safe64.Dirty.cs:665-798`).  Consumes the whole input and returns the
+    decoded bytes (up to ``max_output_length``)."""
+    src = bytes(src)
+    dst = bytearray()
+    for lit, length, offset, mlen in _unknown_sequences(src,
+                                                        max_output_length):
+        dst += src[lit:lit + length]
+        if mlen:
+            _copy_match(dst, len(dst) - offset, mlen)
     return bytes(dst)
+
+
+def unknown_output_length(src, max_output_length: int) -> int:
+    """The length ``decompress_block_unknown`` decodes ``src`` to, from
+    its header walk alone (literal bytes are skipped, nothing is copied);
+    raises its CorruptedBlockError where it does."""
+    return sum(length + mlen for _, length, _, mlen in
+               _unknown_sequences(bytes(src), max_output_length))
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Port of the fused branch of ``lz4net_tpu/ops/decode_vector.py``
 (``decode_batch_vectorized(fused=True)``, :304-374), with its preset-
 dictionary prefix, and of ``VectorDecoder``'s known-length, dictionary
 (``decode_batch``, :706-785) and unknown-length (``decode_batch_unknown``,
-:653-703) decode for blocks of at most 96 KB.  Four kernels carry it,
-each with its plain PyTorch version beside it:
+:653-703) decode, with blocks over 96 KB as fragment waves
+(``_decode_big_many``, :599-651).  Four kernels carry it, each with its
+plain PyTorch version beside it:
 
 1. ``parse_kernel.parse_tokens``: compressed bytes -> token marks;
 2. ``records_kernel.records_to_state``: marks -> per-byte state words and
@@ -25,6 +26,12 @@ lies right-aligned below P as resolved bytes, ``records_to_state``
 places the first token at P and checks every match against the window's
 true start (P - pre_len), and ``resolve_wavefront`` passes the P / 8192
 prefix chunks through.
+
+A block over 96 KB, compressed or decoded, is cut on the host into
+fragments of at most 96 KB of output (``bigblock.split_fragments``, a
+walk over its sequence headers); fragment w of every big block of the
+batch decodes in one device pass, each behind its own window, the
+block's previous 64 KB of output, through the same prefix rows.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from ..constants import MAX_DISTANCE_WINDOW
 from ..models import reference
+from .bigblock import WINDOW, scan, split_fragments
 from .fused_gather import rowbase_gather
 from .parse_kernel import parse_tokens
 from .records_kernel import records_to_state
@@ -187,38 +195,113 @@ class VectorDecoder:
     def decode_batch(self, blocks, out_lens, dictionary=None):
         """The decoded blocks of known lengths ``out_lens``; with
         ``dictionary`` (one window shared by the batch, or a list of one
-        window a block) matches may reach back into the window."""
+        window a block) matches may reach back into the window.  Blocks
+        over 96 KB, compressed or decoded, go to ``_decode_big_many``."""
         blocks = [bytes(b) for b in blocks]
         out_lens = list(out_lens)
         if not blocks:
             return []
+        if isinstance(dictionary, (bytes, bytearray, memoryview)):
+            dictionary = [bytes(dictionary)] * len(blocks) if dictionary \
+                else None
         big = [i for i, (b, n) in enumerate(zip(blocks, out_lens))
                if len(b) > self.MAX_BLOCK or n > self.MAX_BLOCK]
+        bigs = set(big)
+        small = [i for i in range(len(blocks)) if i not in bigs]
+        results = [None] * len(blocks)
+        if small:
+            out, total, ok, strict, needed = self._pass(
+                [blocks[i] for i in small], [out_lens[i] for i in small],
+                [dictionary[i] for i in small] if dictionary else None)
+            # Accept device output only under full strict certification
+            # (the hardened-decoder invariants + exact length match),
+            # exactly the rule of decode_vector.py:769-774; anything
+            # weaker could accept a stream the reference rejects.
+            for j, i in enumerate(small):
+                n = out_lens[i]
+                if (not bool(ok[j]) or int(total[j]) != n
+                        or not bool(strict[j]) or int(needed[j]) != n):
+                    self.host_decodes += 1
+                    results[i] = (
+                        reference.decompress_block_dict(blocks[i],
+                                                        dictionary[i], n)
+                        if dictionary else
+                        reference.decompress_block(blocks[i], n))
+                else:
+                    results[i] = out[j, :n].tobytes()
         if big:
-            raise NotImplementedError(
-                f"blocks over {self.MAX_BLOCK} bytes (indices {big[:8]}) "
-                "are not ported yet: ROADMAP.md queue A, item 4")
-        out, total, ok, strict, needed = self._pass(blocks, out_lens,
-                                                    dictionary)
-        if isinstance(dictionary, (bytes, bytearray, memoryview)):
-            dictionary = [dictionary] * len(blocks)
-        results = []
-        # Accept device output only under full strict certification (the
-        # hardened-decoder invariants + exact length match), exactly the
-        # rule of decode_vector.py:769-774; anything weaker could accept a
-        # stream the reference rejects.
-        for i, n in enumerate(out_lens):
-            if (not bool(ok[i]) or int(total[i]) != n
-                    or not bool(strict[i]) or int(needed[i]) != n):
-                self.host_decodes += 1
-                results.append(
-                    reference.decompress_block_dict(blocks[i],
-                                                    dictionary[i], n)
-                    if dictionary else
-                    reference.decompress_block(blocks[i], n))
-            else:
-                results.append(out[i, :n].tobytes())
+            self._decode_big_many(
+                big, blocks, out_lens, results,
+                lambda i: reference.decompress_block_dict(
+                    blocks[i], dictionary[i], out_lens[i]) if dictionary
+                else reference.decompress_block(blocks[i], out_lens[i]),
+                by_fragment=True, dictionary=dictionary)
         return results
+
+    def _decode_big_many(self, idx, blocks, out_lens, results, host,
+                         by_fragment, dictionary=None, scans=None):
+        """Decode ``blocks[i]`` for i in ``idx`` (blocks over 96 KB)
+        into ``results[i]`` as fragment waves (decode_vector.py:599-651
+        there; ``bigblock.split_fragments``): wave w decodes fragment w
+        of every block that has one in one device pass, each row behind
+        its own window, the block's last 64 KB of output (the dictionary's
+        tail, per block, before that).  A block the header walk refuses
+        goes whole to ``host(i)``, the host decoder of its path, which
+        raises the reference's error.  So does a block with a fragment
+        the card cannot certify, unless ``by_fragment``: then (the
+        known-length paths) that fragment alone is re-decoded on the host
+        by ``reference.decompress_fragment``, as the JAX package's
+        ``native.decompress_fragment``, and the block goes to ``host(i)``
+        only where that refuses too.  Each host decode counts in
+        ``host_decodes``.  ``scans`` may carry each block's
+        ``bigblock.scan``, already walked."""
+        frags, outs, heads = {}, {}, {}
+        for k, i in enumerate(idx):
+            f = split_fragments(blocks[i], out_lens[i],
+                                scans[k] if scans else None)
+            if f is None:
+                self.host_decodes += 1
+                results[i] = host(i)
+                continue
+            frags[i] = f
+            outs[i] = bytearray()
+            heads[i] = (bytes(dictionary[i] or b"")[-WINDOW:]
+                        if dictionary else b"")
+        for w in range(max(map(len, frags.values()), default=0)):
+            live = [i for i in frags if w < len(frags[i])]
+            if not live:
+                break
+            fr = [frags[i][w][0] for i in live]
+            spans = [frags[i][w][2] for i in live]
+            windows = []
+            for i in live:
+                o0 = frags[i][w][1]
+                windows.append((heads[i] + bytes(outs[i]))[-WINDOW:]
+                               if o0 < WINDOW
+                               else bytes(outs[i][o0 - WINDOW:o0]))
+            out, total, ok, strict, needed = self._pass(
+                fr, spans, windows if any(windows) else None)
+            for j, i in enumerate(live):
+                n = spans[j]
+                if (bool(ok[j]) and int(total[j]) == n and bool(strict[j])
+                        and int(needed[j]) == n):
+                    outs[i] += out[j, :n].tobytes()
+                    continue
+                self.host_decodes += 1
+                piece = None
+                if by_fragment:
+                    try:
+                        piece = reference.decompress_fragment(
+                            fr[j], windows[j], n)
+                    except reference.CorruptedBlockError:
+                        pass
+                if piece is None:
+                    results[i] = host(i)
+                    del frags[i]
+                else:
+                    outs[i] += piece
+        for i in frags:
+            results[i] = bytes(outs[i])
 
     def decode_batch_unknown(self, blocks, max_out_lens):
         """Unknown-output-length decode: each block's decoded bytes, at
@@ -228,17 +311,24 @@ class VectorDecoder:
         parse implies (``needed``, which does not depend on the output
         length) was decoded whole within its cap (decode_vector.py:
         694-700 there).  A block over 96 KB, or one whose parse implies
-        more than 96 KB under a cap above that, raises
-        ``NotImplementedError`` (ROADMAP.md queue A, item 4).  Every
-        other uncertified block, and an empty one, is re-decoded by the
-        host's hardened decoder, which raises the reference's errors for
+        more than 96 KB under a cap above that, is walked on the host
+        twice: the hardened decoder's walk over its headers
+        (``reference.unknown_output_length``, every block-end and cap
+        rule of that decoder) gives the length n it decodes to, and
+        ``bigblock.scan`` must find the same n; then it decodes as a
+        known-length big block of n bytes, every fragment certified on
+        the card (the JAX package decodes these on its host).  Every
+        other block, an empty one, one either walk refuses and one with
+        a fragment the card cannot certify, is decoded by the host's
+        hardened decoder, which raises the reference's errors for
         malformed input."""
         blocks = [bytes(b) for b in blocks]
         caps = list(max_out_lens)
-        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
         results = [None] * len(blocks)
-        live = [i for i, b in enumerate(blocks) if b]
-        if live and not big:
+        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
+        live = [i for i, b in enumerate(blocks)
+                if b and len(b) <= self.MAX_BLOCK]
+        if live:
             out, total, ok, strict, needed = self._pass(
                 [blocks[i] for i in live],
                 [min(caps[i], self.MAX_BLOCK) for i in live])
@@ -249,11 +339,24 @@ class VectorDecoder:
                     results[i] = out[j, :n].tobytes()
                 elif n > self.MAX_BLOCK and caps[i] > self.MAX_BLOCK:
                     big.append(i)
-        if big:
-            raise NotImplementedError(
-                f"blocks over {self.MAX_BLOCK} bytes, compressed or decoded "
-                f"(indices {big[:8]}), are not ported yet: ROADMAP.md queue "
-                "A, item 4")
+        walked = []
+        for i in big:
+            try:
+                n = reference.unknown_output_length(blocks[i], caps[i])
+            except reference.CorruptedBlockError:
+                continue                 # the host decoder raises it
+            # the walks part only where the hardened one stops reading a
+            # match length 6 bytes before the end; scan then refuses the
+            # block or finds it longer: equal lengths, equal parses
+            s = scan(blocks[i])
+            if s is not None and s[2] == n:
+                walked.append((i, s))
+        if walked:
+            self._decode_big_many(
+                [i for i, _ in walked], blocks, {i: s[2] for i, s in walked},
+                results, lambda i: reference.decompress_block_unknown(
+                    blocks[i], caps[i]), by_fragment=False,
+                scans=[s for _, s in walked])
         for i, r in enumerate(results):
             if r is None:
                 self.host_decodes += 1

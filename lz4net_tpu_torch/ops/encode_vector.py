@@ -4,7 +4,8 @@ Port of ``lz4net_tpu/ops/encode_vector.py``: ``encode_batch_vectorized``
 (``fused=True``) for ``hc_level`` 0 (fast greedy, :499-548 and :759-783
 there) and 1-9 (fast-HC, the HC branch :507-742), with or without a
 preset dictionary (P mode, :477-485, :744-749), and
-``VectorEncoder.encode_batch`` for blocks of at most 96 KB.  Five kernels
+``VectorEncoder.encode_batch`` (:1052-1118), with blocks over 96 KB cut
+into 64 KB segments (``_encode_big``, :1120-1212).  Five kernels
 carry it, each with its plain PyTorch version beside it, and a sixth
 serves the literal bytes:
 
@@ -31,7 +32,7 @@ at once, plus the run tables); ``hc_tiers`` overrides it ("suffix",
 The JAX package sends some HC batches to its XLA ``_match_lengths``
 instead of the TPU kernel (large D with a large rcap), because of the
 TPU's VMEM; the two are bit-identical.  The CUDA ``match_lengths`` has
-no such limit up to D = 106496, so the port always calls its kernel.
+no such limit up to D = 172,032, so the port always calls its kernel.
 
 ``encode_batch_chain`` is the same encoder with the JAX encoder's chain
 record path (its ``fused`` branch without the sequence megakernel,
@@ -46,9 +47,18 @@ first P positions (a multiple of 8192) and the block from P on:
 candidates reach into the window, tokens start at P or later, no match
 reaches below the window's start (P - pre_len), and the format's end
 rules count from the block's end ``P + data_len``.  A row is P + the
-block wide, so with a full 64 KB window the kernels' width
-(``seq_kernel.MAX_D`` = ``mlen_kernel.MAX_D`` = 106,496) takes blocks of
-at most 40,959 bytes; wider rows raise (ROADMAP.md queue A, item 7b).
+block wide: the kernels take rows of up to 172,032 positions
+(``seq_kernel.MAX_D`` = ``mlen_kernel.MAX_D`` = ``hash_kernel.MAX_D``),
+a 96 KB block behind a full 64 KB window.
+
+A block over 96 KB is cut into 64 KB segments, each a P-mode row behind
+the 64 KB of input before it (P = 65,536, D = 139,264); the segments of
+every big block of a batch encode in one device pass, and each block's
+segment payloads join into one block, the literal tail of each segment
+merged into the next one's first literal run through the ``aux`` pair
+that ``encode_batch_vectorized`` returns.  The chain record path
+(``encode_batch_chain``) still takes rows of at most 106,496 positions
+(``chain_kernel.MAX_D``; ROADMAP.md queue A, item 7c).
 
 The output is the JAX vector encoder's byte string exactly: format-valid
 LZ4 that any decoder reads, not the reference compressor's parse.  A
@@ -63,10 +73,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
-                         MINMATCH, maximum_output_length)
+from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
+                         MFLIMIT, MINLENGTH, MINMATCH,
+                         maximum_output_length)
 from ..models import reference
 from .decode_vector import CH, _cdiv, pack_windows, resolve_device
+from .bigblock import _synth_literals
 from .chain_kernel import mark_chain
 from .emit_kernel import emit_bytes
 from .fused_gather import rowbase_gather, table_gather
@@ -75,7 +87,7 @@ from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
 from .hash_kernel import shift_left as _shift_left
 from .mlen_kernel import match_lengths_fused, run_lengths
 from .mlen_kernel import words as _u32
-from .seq_kernel import MAX_D, parse_records, sequence_records
+from .seq_kernel import parse_records, sequence_records
 
 LANE = 128
 TOP_OFFSETS = 8      # dominant offsets given exact unbounded lengths
@@ -441,7 +453,9 @@ def _encode(records, x, data_len, D, O, S_cap, rcap, hc_level, hc_tiers,
     recs = records(
         u32, matched, off_all, mlen_all, P + data_len, pre_len, D, S_cap,
         P=P, cu_rounds=HC_CU_ROUNDS if hc_level else CU_ROUNDS)
-    return _emit_stage(x, recs, O, S_cap)
+    # aux: the first record's and the tail's literal lengths (stats
+    # columns 3-4: the tail's where there is no match record)
+    return (*_emit_stage(x, recs, O, S_cap), recs[5][:, 3:5])
 
 
 def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
@@ -458,7 +472,11 @@ def encode_batch_vectorized(x, data_len, D: int, O: int, S_cap: int,
     of 8192) is preset-dictionary mode: x[:, :P] holds the window
     right-aligned, the block starts at column P, ``data_len`` counts the
     block's bytes and ``pre_len`` [B] int32 (default P) the window's.
-    Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool).
+    Returns (out [B, O] int32 bytes, out_len [B] int32, ok [B] bool,
+    aux [B, 2] int32): aux is (the first record's literal length, or the
+    tail's where no match record was made; the tail's literal length), as
+    JAX returns it (:986-995 there) for ``VectorEncoder._encode_big``'s
+    boundary merge.
     """
     return _encode(sequence_records, x, data_len, D, O, S_cap, rcap,
                    hc_level, hc_tiers, P, pre_len)
@@ -522,6 +540,39 @@ def window_rows(blocks, dictionary=None):
     return x, data_len, pre_len, P, D, O, S_cap
 
 
+SEG_SIZE = 64 * 1024     # a big block's encode segments
+
+
+def big_segments(blocks):
+    """(block index, start, length) of each 64 KB segment of each block,
+    in order."""
+    return [(j, s, min(SEG_SIZE, len(b) - s)) for j, b in enumerate(blocks)
+            for s in range(0, len(b), SEG_SIZE)]
+
+
+def segment_rows(blocks, segs, dictionary=None):
+    """The P-mode rows of ``VectorEncoder._encode_big`` (:1137-1158
+    there) for the segments ``segs`` of ``big_segments(blocks)``: each
+    segment from P = 65,536 on, behind the 64 KB of its block before it
+    (for a segment less than 64 KB in, the dictionary's tail and the
+    block's start), laid out below P by ``decode_vector.pack_windows``.
+    Returns (x [n, D] uint8, data_len [n] int32, pre_len [n] int32, P, D,
+    O, S_cap), D = 139,264 whatever the segments' lengths, so every pass
+    has one shape."""
+    P = MAX_DISTANCE_WINDOW
+    D, O, S_cap = batch_shapes(SEG_SIZE, P)
+    head = bytes(dictionary)[-P:] if dictionary else b""
+    pre, pre_len, Pw = pack_windows(
+        [(head + blocks[i][:s])[-P:] if s < P else blocks[i][s - P:s]
+         for i, s, _ in segs], len(segs))
+    x = np.zeros((len(segs), D), np.uint8)
+    x[:, P - Pw:P] = pre                 # right-aligned below P
+    lens = np.array([ln for *_, ln in segs], np.int32)
+    for j, (i, s, ln) in enumerate(segs):
+        x[j, P:P + ln] = np.frombuffer(blocks[i][s:s + ln], np.uint8)
+    return x, lens, pre_len, P, D, O, S_cap
+
+
 def hc_rcap(hc_level: int, D: int) -> int:
     """Far matches extended past 8 bytes per block at a (clamped) level:
     RCAP for fast mode, D // 8 (at least RCAP) up to level 5, D // 4
@@ -533,13 +584,30 @@ def hc_rcap(hc_level: int, D: int) -> int:
 
 class VectorEncoder:
     """Fast and fast-HC batch encode through the kernels, one device pass
-    per batch; blocks the device flags go to the host compressor."""
+    per batch (and one for the segments of its blocks over 96 KB);
+    blocks the device flags go to the host compressor."""
 
     MAX_BLOCK = 96 * 1024
+    SEG_ROWS = 256           # segment rows at most in one device pass
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.host_encodes = 0
+
+    def _device_pass(self, x, lens, pre_len, P, D, O, S_cap, lvl,
+                     hc_tiers):
+        """``encode_batch_vectorized`` on rows laid out on the host:
+        (out [B, O] uint8, out_len, ok, aux) as numpy arrays."""
+        # the bytes ship as uint8 and widen on the device
+        xt = torch.from_numpy(x).to(self.device).to(torch.int32)
+        out, out_len, ok, aux = encode_batch_vectorized(
+            xt, torch.from_numpy(lens).to(self.device), D, O, S_cap,
+            hc_rcap(lvl, D), lvl, hc_tiers, P,
+            None if pre_len is None
+            else torch.from_numpy(pre_len).to(self.device))
+        # fetch bytes, not words
+        return (out.to(torch.uint8).cpu().numpy(), out_len.cpu().numpy(),
+                ok.cpu().numpy(), aux.cpu().numpy())
 
     def encode_batch(self, blocks, dst_maxlens=None, hc_level=0,
                      dictionary=None, hc_tiers=None):
@@ -547,39 +615,27 @@ class VectorEncoder:
         ``dst_maxlens`` entry (default: the worst-case bound).
         ``hc_level`` 0 is fast greedy, 1-9 fast-HC (clamped to 9).
         ``dictionary`` enables preset-dictionary matching: its last 64 KB
-        precede every block (P mode); decode needs the same bytes."""
+        precede every block (P mode); decode needs the same bytes.
+        Blocks over 96 KB encode as 64 KB segments (``_encode_big``)."""
         blocks = [bytes(b) for b in blocks]
         if not blocks:
             return []
         if dst_maxlens is None:
             dst_maxlens = [maximum_output_length(len(b)) for b in blocks]
-        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
-        if big:
-            raise NotImplementedError(
-                f"blocks over {self.MAX_BLOCK} bytes (indices {big[:8]}) "
-                "are not ported yet: ROADMAP.md queue A, item 7b")
         lvl = min(max(hc_level, 0), 9)
         results = [b""] * len(blocks)      # an empty block encodes to b""
-        todo = [i for i, b in enumerate(blocks) if b]
+        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
+        if big:
+            self._encode_big(big, blocks, dst_maxlens, results, lvl,
+                             dictionary, hc_tiers)
+        todo = [i for i, b in enumerate(blocks)
+                if b and len(b) <= self.MAX_BLOCK]
         if not todo:
             return results
         x, lens, pre_len, P, D, O, S_cap = window_rows(
             [blocks[i] for i in todo], dictionary)
-        if D > MAX_D:
-            raise NotImplementedError(
-                f"a row of {D} positions (a {P}-byte prefix and blocks of "
-                f"up to {max(lens)} bytes) is wider than the encode "
-                f"kernels take ({MAX_D}): ROADMAP.md queue A, item 7b")
-        # the bytes ship as uint8 and widen on the device
-        xt = torch.from_numpy(x).to(self.device).to(torch.int32)
-        out, out_len, ok = encode_batch_vectorized(
-            xt, torch.from_numpy(lens).to(self.device), D, O, S_cap,
-            hc_rcap(lvl, D), lvl, hc_tiers, P,
-            None if pre_len is None
-            else torch.from_numpy(pre_len).to(self.device))
-        # fetch bytes, not words
-        out = out.to(torch.uint8).cpu().numpy()
-        out_len, ok = out_len.cpu().numpy(), ok.cpu().numpy()
+        out, out_len, ok, _aux = self._device_pass(
+            x, lens, pre_len, P, D, O, S_cap, lvl, hc_tiers)
         for j, i in enumerate(todo):
             if ok[j]:
                 payload = out[j, :int(out_len[j])].tobytes()
@@ -589,6 +645,79 @@ class VectorEncoder:
                                             dictionary)
             results[i] = payload if len(payload) <= dst_maxlens[i] else b""
         return results
+
+    def _encode_big(self, idx, blocks, dst_maxlens, results, lvl,
+                    dictionary, hc_tiers):
+        """Encode ``blocks[i]`` for i in ``idx`` (blocks over 96 KB) into
+        ``results[i]`` (``_encode_big`` there, :1120-1212): each block is
+        cut into 64 KB segments, each encoded in P mode behind the 64 KB
+        of input before it (``segment_rows``), the segments of every big
+        block in one device pass (of at most ``SEG_ROWS`` rows); the
+        payloads join into one block, each segment's literal tail merged
+        into the next segment's first literal run (a literal-only
+        sequence may only end a block).  A block any of whose segments
+        the device flags goes whole to the host compressor."""
+        segs = big_segments([blocks[i] for i in idx])
+        ok, aux, payloads = [], [], []
+        for r0 in range(0, len(segs), self.SEG_ROWS):
+            part = segs[r0:r0 + self.SEG_ROWS]
+            x, lens, pre_len, P, D, O, S_cap = segment_rows(
+                [blocks[i] for i in idx], part, dictionary)
+            o, ol, k, a = self._device_pass(x, lens, pre_len, P, D, O,
+                                            S_cap, lvl, hc_tiers)
+            payloads += [o[j, :n].tobytes() for j, n in enumerate(ol)]
+            ok += k.tolist()
+            aux += a.tolist()
+        j0 = 0
+        for i in idx:
+            rows = range(j0, j0 + -(-len(blocks[i]) // SEG_SIZE))
+            j0 = rows.stop
+            if all(ok[j] for j in rows):
+                payload = self._merge_segments(
+                    blocks[i], [(payloads[j], aux[j]) for j in rows])
+            else:
+                self.host_encodes += 1
+                payload = self._host_encode(blocks[i], dst_maxlens[i], lvl,
+                                            dictionary)
+            results[i] = payload if len(payload) <= dst_maxlens[i] else b""
+
+    @staticmethod
+    def _merge_segments(block, parts):
+        """One block from its segments' payloads and aux pairs (:1170-1210
+        there): a literal-only segment carries its bytes into the next;
+        every other non-final segment's literal tail is stripped and
+        joined to the next segment's first literal run, whose token keeps
+        its match nibble; a pending tail at the end becomes a final
+        literal-only sequence."""
+        def lit_hdr(ll):
+            return 1 + (0 if ll < 15 else 1 + (ll - 15) // 255)
+
+        out = []
+        pending = 0                     # carried literal bytes
+        n = len(block)
+        for j, (pl, (first_ll, tail_ll)) in enumerate(parts):
+            sg = j * SEG_SIZE
+            ln = min(SEG_SIZE, n - sg)
+            if first_ll == ln and tail_ll == ln:
+                pending += ln           # a literal-only segment
+                continue
+            if pending:
+                h = lit_hdr(first_ll)
+                tok_old = pl[0]
+                lead = _synth_literals(block[sg - pending:sg]
+                                       + pl[h:h + first_ll])
+                # _synth_literals writes the match nibble 0: restore it
+                pl = bytes([lead[0] | (tok_old & 15)]) + lead[1:] \
+                    + pl[h + first_ll:]
+            if j < len(parts) - 1:
+                pl = pl[:len(pl) - (lit_hdr(tail_ll) + tail_ll)]
+                pending = tail_ll
+            else:
+                pending = 0
+            out.append(pl)
+        if pending:                     # a trailing literal-only tail
+            out.append(_synth_literals(block[n - pending:]))
+        return b"".join(out)
 
     @staticmethod
     def _host_encode(block, dst_maxlen, hc_level, dictionary):

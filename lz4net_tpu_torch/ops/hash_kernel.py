@@ -38,8 +38,9 @@ from .. import _build
 
 LANE = 128
 CHUNK = 4 * LANE
-MAX_D = (1 << 17) - CHUNK    # the kernel's tables keep position + 1 in
-                             # 17 bits
+MAX_D = 21 * 8192            # a 96 KB block behind a 64 KB window; the
+                             # kernel's tables keep position + 1 in 18
+                             # bits
 NB = 8192                    # buckets: the reference's 64K-input table
 NBROWS = 64                  # NB in 128-bucket rows
 HASH_MUL = -1640531535       # 2654435761 as int32

@@ -40,9 +40,10 @@ from ..constants import (LASTLITERALS, MAX_DISTANCE, MFLIMIT, MINLENGTH,
 from .hash_kernel import shift_left
 
 TILE = 4096          # the kernel's scan tile; D must be a multiple
-MAX_D = 13 * 8192    # 96 KB blocks; the kernel keeps 2 bytes a position
-                     # and at least one class's break bitmask in shared
-                     # memory
+MAX_D = 21 * 8192    # a 96 KB block behind a 64 KB window; the kernel
+                     # keeps the bytes and at least one class's break
+                     # bitmask in shared memory, and each position's
+                     # class byte there too where it fits
 MAX_TOP = 24         # at most this many dominant offsets (HC tiers: 24)
 
 launches = 0
@@ -83,11 +84,15 @@ def match_lengths_fused(x, u32, prev, m8, dks, end_abs, blk_len, D: int,
         _aligned(t.contiguous()) for t in (x, prev, m8, dks, end_abs,
                                            blk_len))
     matched, off, mlen = (torch.empty_like(x) for _ in range(3))
+    # a class byte a position, for rows too wide to keep them in shared
+    # memory (the launcher decides; the caching allocator makes it cheap)
+    cls = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     _build.launch("lz4t_match_lengths", x.device, x.data_ptr(),
                   u32.data_ptr(), prev.data_ptr(), m8.data_ptr(),
                   dks.data_ptr(), end_abs.data_ptr(), blk_len.data_ptr(),
                   matched.data_ptr(), off.data_ptr(), mlen.data_ptr(),
-                  x.shape[0], D, dks.shape[1], rcap, ext_rounds)
+                  cls.data_ptr(), x.shape[0], D, dks.shape[1], rcap,
+                  ext_rounds)
     launches += 1
     return matched, off, mlen
 

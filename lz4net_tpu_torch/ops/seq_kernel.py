@@ -43,7 +43,8 @@ from .emit_kernel import BIGKEY
 from .parse_kernel import _orbit_of_zero
 
 TILE = 4096          # the kernel's scan tile; D must be a multiple
-MAX_D = 13 * 8192    # 96 KB blocks, the widest the encoder takes
+MAX_D = 21 * 8192    # a 96 KB block behind a 64 KB window, the widest
+                     # row the encoder makes
 
 launches = 0
 

@@ -1024,3 +1024,68 @@ def dict_encode_inputs(P: int, D: int = 8192):
     assert Pw == P
     return (torch.from_numpy(x.astype("int32")), torch.from_numpy(data_len),
             torch.from_numpy(pre_len))
+
+
+def big_edge_blocks(seed: int = 0) -> list:
+    """Blocks over 96 KB that drive the big-block paths' edge cases (the
+    fragment walk of ``ops/bigblock.py`` on decode, the 64 KB segments of
+    ``VectorEncoder._encode_big`` on encode): [(name, data, block)],
+    ``block`` a hand-made LZ4 block that decodes to ``data``.
+
+    * ``giant_match_and_literals``: a 120,000-byte match at offset 1 (a
+      run of equal bytes longer than a fragment) and a 60,000-byte
+      incompressible literal run, both sequences cut into synthetic
+      pieces;
+    * ``match_tail_under_4``: a 49,154-byte match, whose last 48 KB slice
+      would leave 2 bytes (cut 4 bytes earlier instead), and a 60,000-byte
+      run at offset 3;
+    * ``final_run_at_boundary``: sequences of exactly 48 KB of output
+      each, so that the final literal run starts on a fragment boundary;
+    * ``incompressible``: 100,000 random bytes, one literal run (over
+      96 KB compressed and decoded).
+    """
+    rng = random.Random(seed)
+    text = silesia_like(64 * 1024, seed + 13)
+    rows = [
+        ("giant_match_and_literals", _lz4_sequences(
+            [(text[:20000], 1, 120000), (rng.randbytes(60000), 7000, 3000)],
+            text[20000:40000])),
+        ("match_tail_under_4", _lz4_sequences(
+            [(text[:64], 64, 49154), (text[64:164], 3, 60000)],
+            text[200:700])),
+        ("final_run_at_boundary", _lz4_sequences(
+            [(text[:16], 16, 49136), (text[16:116], 50, 49052)],
+            text[1000:2000])),
+        ("incompressible", _lz4_sequences([], rng.randbytes(100000))),
+    ]
+    from ..models.reference import decompress_block
+    from ..ops.bigblock import scan
+
+    return [(name, decompress_block(blk, scan(blk)[2]), blk)
+            for name, blk in rows]
+
+
+def big_bad_blocks(block: bytes) -> list:
+    """Malformed variants of ``block``, a well-formed LZ4 block over 96 KB,
+    that the header walk ``ops.bigblock.scan`` takes but the hardened
+    unknown-length decoder (``reference.decompress_block_unknown``)
+    refuses under any cap: [(name, bytes)].
+
+    * ``final_run_cut``: ``block`` without its final literal run, so that
+      it ends on a match;
+    * ``empty_final_run``: the same, then an empty final literal run (one
+      0x00 token: the last match ends fewer than 5 literals before the
+      end);
+    * ``giant_match_at_end``: the same, then the final literal run's bytes
+      and a 120,000-byte match at offset 1 (a giant, cut into synthetic
+      pieces by the fragment walk) end the block.
+    """
+    from collections import deque
+
+    from ..models.reference import _unknown_sequences
+
+    (lit, ll, _, _), = deque(_unknown_sequences(block, 1 << 31), maxlen=1)
+    cut = block[:lit - 1 - (0 if ll < 15 else 1 + (ll - 15) // 255)]
+    giant = _lz4_sequences([(block[lit:lit + ll], 1, 120000)], b"")
+    return [("final_run_cut", cut), ("empty_final_run", cut + b"\x00"),
+            ("giant_match_at_end", cut + giant[:-1])]

@@ -65,14 +65,15 @@ def test_chain_path_matches_jax_bytes(batch, monkeypatch):
     ``table_gather`` 1 + 2 x 2 + 1 + 1 times and marks the chain once."""
     blocks, x, dl, (_, O, S_cap) = batch
     calls = _count_calls(monkeypatch)
-    out, out_len, ok = ev.encode_batch_chain(torch.from_numpy(x),
-                                             torch.from_numpy(dl), D, O,
-                                             S_cap)
+    out, out_len, ok, aux = ev.encode_batch_chain(torch.from_numpy(x),
+                                                  torch.from_numpy(dl), D, O,
+                                                  S_cap)
     assert calls == {"table_gather": 7, "mark_chain": 1}
-    jout, jlen, jok, _ = jev.encode_batch_vectorized(x, dl, D, O, S_cap,
-                                                     fused=False)
+    jout, jlen, jok, jaux = jev.encode_batch_vectorized(x, dl, D, O, S_cap,
+                                                        fused=False)
     np.testing.assert_array_equal(out_len.numpy(), np.asarray(jlen))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(jaux))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
     assert ok.all()
     for b, p in zip(blocks, _payloads(out, out_len)):

@@ -8,7 +8,8 @@ kernels), held against the JAX package and the oracles.
   strict, consumed and needed equal, tolerance 0, with the decoded
   lengths and, for the unknown-length path, with caps as ``out_len``;
 * ``VectorDecoder.decode_batch_unknown`` against the hardened decoders
-  of both packages, and with caps over 96 KB on the device;
+  of both packages, and with caps over 96 KB on the device (blocks
+  that decode to more as big blocks);
 * ``VectorDecoder`` and the codec against the native oracle.
 """
 
@@ -200,11 +201,12 @@ def test_decode_batch_unknown_keeps_caps_over_96_kb_on_the_device(
         slice_batch):
     """A cap above 96 KB cuts the device pass's output length to 96 KB
     and changes nothing else: every whole block decodes on the device,
-    through ``codec.decode(max_output_length=)`` too.  Only a block
-    whose parse implies more than 96 KB under such a cap, or one
-    compressed to more, raises ``NotImplementedError`` naming ROADMAP A4;
-    under a cap of 96 KB such a block is the host's, which raises the
-    reference's error."""
+    through ``codec.decode(max_output_length=)`` too.  A block whose
+    parse implies more than 96 KB under such a cap, or one compressed to
+    more, is walked for its decoded length and decodes as a big block on
+    the device (fragment waves); one whose fragments the device and the
+    host's fragment decoder both refuse raises the reference's error, as
+    does such a block under a cap of 96 KB (the host's)."""
     b = slice_batch
     blocks, datas = b["packed"][:-1], b["datas"][:-1]
     big_cap, MAX = 1 << 20, dv.VectorDecoder.MAX_BLOCK
@@ -218,16 +220,18 @@ def test_decode_batch_unknown_keeps_caps_over_96_kb_on_the_device(
                         device="cpu") == datas[-1]
     assert facade.host_decodes == before
     big = reference.compress_block(bytes(128 * 1024))
-    for blk in (big, bytes(MAX + 1)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            dec.decode_batch_unknown([blocks[0], blk], [big_cap] * 2)
+    assert dec.decode_batch_unknown([blocks[0], big], [big_cap] * 2) \
+        == [datas[0], bytes(128 * 1024)]
     assert dec.host_decodes == 0
-    with pytest.raises(jref.CorruptedBlockError) as want:
-        jref.decompress_block_unknown(big, MAX)
-    with pytest.raises(reference.CorruptedBlockError,
-                       match=re.escape(str(want.value))):
-        dec.decode_batch_unknown([big], [MAX])
-    assert dec.host_decodes == 1
+    # zeros: 32,768 sequences of offset 0 and a final empty run
+    junk = bytes(MAX + 1)
+    for blk, cap in ((big, MAX), (junk, big_cap)):
+        with pytest.raises(jref.CorruptedBlockError) as want:
+            jref.decompress_block_unknown(blk, cap)
+        with pytest.raises(reference.CorruptedBlockError,
+                           match=re.escape(str(want.value))):
+            dec.decode_batch_unknown([blk], [cap])
+    assert dec.host_decodes == 2
 
 
 def test_vector_decoder_matches_native_oracle():
@@ -251,10 +255,14 @@ def test_vector_decoder_rejects_truncation():
 
 
 def test_vector_decoder_refuses_blocks_over_96k():
+    """A block over 96 KB is no longer refused: it decodes as fragment
+    waves on the device, to the oracle's bytes."""
     data = corpus.silesia_like(100 * 1024, seed=1)
+    packed = reference.compress_block(data)
     dec = dv.VectorDecoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        dec.decode_batch([reference.compress_block(data)], [len(data)])
+    assert dec.decode_batch([packed], [len(data)]) \
+        == [_oracle(packed, len(data))] == [data]
+    assert dec.host_decodes == 0
 
 
 def test_codec_decode_batch_on_cpu():

@@ -236,15 +236,23 @@ def test_dictionary_fast_hc_round_trips(level):
 
 
 def test_p_mode_rows_wider_than_the_kernels_raise():
-    """A 64 KB window leaves room for blocks of at most 40,959 bytes."""
+    """Rows wider than 106,496 positions no longer raise: the encode
+    kernels take 172,032, a 96 KB block behind a full 64 KB window, so
+    blocks of 40,960 bytes and more encode in P mode and round-trip."""
     window = corpus.silesia_like(65536, seed=2)
     enc = ev.VectorEncoder("cpu")
     assert ev.batch_shapes(40959, 65536)[0] == 106496
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        enc.encode_batch([b"x" * 40960], dictionary=window)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        codec.encode_hc(b"x" * 50000, dictionary=window, mode="fast",
-                        device="cpu")
+    assert ev.batch_shapes(96 * 1024, 65536)[0] == 172032
+    data = b"x" * 40960
+    assert reference.decompress_block_dict(
+        enc.encode_batch([data], dictionary=window)[0], window,
+        len(data)) == data
+    data = b"x" * 50000
+    packed = codec.encode_hc(data, dictionary=window, mode="fast",
+                             device="cpu")
+    assert reference.decompress_block_dict(packed, window, len(data)) \
+        == data
+    assert enc.host_encodes == 0
 
 
 def test_wrap_envelopes_match_jax():

@@ -35,6 +35,9 @@ S_cap, N = 128, and an index view off a 16-byte boundary.  The prefix
 P / 8192) and through ``bucket_prev``, ``match_lengths`` (end_abs = P +
 len), ``sequence_records`` (each row's window length, P, 0 and P // 3)
 and ``emit_bytes``, then whole dictionary decode and P-mode encode.
+Blocks over 96 KB: ``corpus.big_edge_blocks`` both ways, and a 1 MB block
+under a 2 MB cap, whose ``corpus.big_bad_blocks`` raise the hardened
+unknown-length decoder's error.
 
 The tests carry the ``gpu`` marker and skip without a CUDA device; on a
 machine with one (no JAX needed) run them with
@@ -45,6 +48,8 @@ machine with one (no JAX needed) run them with
 ``bucket_inputs`` with ``tests/test_torch_seq_hash_edge_cases.py``, which
 hold the plain versions against the JAX package on the CPU.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -68,9 +73,13 @@ from lz4net_tpu_torch.ops import seq_kernel  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 # (K, sub_step, D, rcap): the fast path's 8 offsets, the HC tiers' 24,
-# none, and the widest block the kernel takes
+# none, the widest row that keeps the class bytes in shared memory, a big
+# block's 64 KB segment behind its 64 KB window (139,264) and a 96 KB
+# block behind one (172,032, HC L9's rcap D // 4 = 43,008)
 MLEN_CASES = [(0, 16, 8192, 512), (8, 16, 8192, 1024), (24, 8, 8192, 8192),
-              (24, 8, 106496, 26624)]
+              (24, 8, 106496, 26624), (8, 16, 139264, 4096),
+              (24, 8, 139264, 34816), (8, 16, 172032, 4096),
+              (24, 8, 172032, 43008)]
 
 
 def mlen_edge_rows(D, seed=0):
@@ -99,7 +108,7 @@ def mlen_edge_rows(D, seed=0):
         for p in range(37, 127, 3)]), D)
     text = np.frombuffer(corpus.silesia_like(D - 300, seed), np.uint8)
     flips = sorted({e + k for e in (32, 64, 1024, 2048, 32768, q, 2 * q,
-                                    3 * q, 5000, D - 32)
+                                    3 * q, 5000, D - 32, 131072)
                     for k in (-1, 0, 1) if 4 <= e + k < D})
     for row in (per, far):
         row[flips] ^= 0x5A
@@ -319,7 +328,7 @@ def test_decode_sequencer_at_the_staged_row_limit(cuda, extra):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [4096, 106496])
+@pytest.mark.parametrize("D", [4096, 106496, 139264, 172032])
 @pytest.mark.parametrize("cu_rounds", [2, 8])
 def test_sequence_records_edge_rows_on_the_card(cuda, D, cu_rounds):
     names, *rows, S_cap = corpus.seq_edge_rows(D)
@@ -334,8 +343,12 @@ def test_sequence_records_edge_rows_on_the_card(cuda, D, cu_rounds):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [4096, 106496])
+@pytest.mark.parametrize("D", [4096, 106496, 130560, 131072, 139264,
+                               172032])
 def test_bucket_prev_edge_rows_on_the_card(cuda, D):
+    """Up to 130,560 positions the kernel's table words keep 17
+    position bits, from 131,072 on 18: rows on both sides of 2^17; the
+    one-bucket row saturates a bucket at 512 hits in every chunk."""
     names, x = corpus.bucket_edge_rows(D)
     args = [t.to(cuda) for t in bucket_inputs(names, x)]
     before = hash_kernel.launches
@@ -579,3 +592,106 @@ def test_prefix_encode_kernels_on_dict_edge_rows(cuda, P, window):
            pre_len.to(cuda))
     _equal(ev.encode_batch_vectorized(*dev), want)
     _equal(ev.encode_batch_chain(*dev), want)
+
+
+@pytest.mark.gpu
+def test_wide_prefix_encode_kernels_on_the_card(cuda):
+    """A 96 KB block behind a full 64 KB window (D = 172,032): the three
+    widened kernels (``bucket_prev``; ``match_lengths`` with 8 offsets at
+    the fast rcap and 24 at HC L9's D // 4; ``sequence_records`` at 2 and
+    8 catch-up rounds) and ``emit_bytes`` against their plain versions,
+    with windows of 65,536, 0 and 20,000 bytes and shorter blocks; then
+    P-mode fast encode of the rows on the card against the CPU path."""
+    text = corpus.silesia_like(3 * 65536 + 98304, 21)
+    window = text[:65536]
+    blocks = [text[65536:65536 + 98304], text[100000:100000 + 98303],
+              text[140000:200000], text[131072 - 5:131072 + 40956]]
+    x, dl, pre_len, P, D, O, S_cap = ev.window_rows(blocks, window)
+    assert (P, D) == (65536, 172032)
+    x = torch.from_numpy(x.astype(np.int32))
+    for j, cut in ((1, 65536), (2, 45536)):     # windows of 0 and 20,000
+        x[j, :cut] = 0
+    dl, pre_len = torch.from_numpy(dl), torch.tensor(
+        [65536, 0, 20000, 65536], dtype=torch.int32)
+    end_abs = P + dl
+    u32 = ev._u32(x)
+    us4 = ev._shift_left(u32, 4)
+    bargs = (u32, us4, hash_kernel.hash_bucket(u32),
+             hash_kernel.hash_bucket8(u32, us4))
+    prev = hash_kernel.bucket_prev_reference(*bargs, D)
+    _equal([hash_kernel.bucket_prev(*(t.to(cuda) for t in bargs), D)],
+           [prev])
+    off = torch.arange(D, dtype=torch.int32) - prev
+    far = (prev >= 0) & (off <= 65535) & (off > 4)
+    for K, sub, rcap in ((8, 16, ev.RCAP), (24, 8, D // 4)):
+        dks = ev._top_offsets_select(off, far, K, sub)
+        margs = (x, u32, prev, torch.zeros_like(prev), dks, end_abs, dl)
+        state = mlen_kernel.match_lengths_reference(*margs, D, rcap)
+        _equal(mlen_kernel.match_lengths_fused(
+            *(t.to(cuda) for t in margs), D, rcap), state)
+    matched, off_all, mlen_all = state
+    i = torch.arange(D, dtype=torch.int32)
+    matched = matched * ((i >= P) & (off_all <= i - (P - pre_len[:, None])))
+    sargs = (u32, matched, off_all, mlen_all, end_abs, pre_len)
+    for rounds in (ev.CU_ROUNDS, ev.HC_CU_ROUNDS):
+        recs = seq_kernel.sequence_records_reference(*sargs, D, S_cap, P,
+                                                     rounds)
+        _equal(seq_kernel.sequence_records(*(t.to(cuda) for t in sargs),
+                                           D, S_cap, P, rounds), recs)
+    eargs = (*recs[:5], recs[5][:, 2].contiguous())
+    _equal(emit_kernel.emit_bytes(*(t.to(cuda) for t in eargs), O),
+           emit_kernel.emit_bytes_reference(*eargs, O))
+    enc = ev.VectorEncoder(cuda)
+    got = enc.encode_batch(blocks, dictionary=window)
+    assert enc.host_encodes == 0
+    assert got == ev.VectorEncoder("cpu").encode_batch(blocks,
+                                                       dictionary=window)
+    assert [reference.decompress_block_dict(p, window, len(b))
+            for p, b in zip(got, blocks)] == blocks
+
+
+@pytest.mark.gpu
+def test_big_edge_blocks_on_the_card(cuda):
+    """``corpus.big_edge_blocks`` both ways on the card: each hand-made
+    block decodes (known and unknown length, and behind a dictionary) to
+    its bytes with no host re-decode, and each block's bytes encode, fast
+    and at HC level 9, to the CPU path's payload with no host encode."""
+    rows = corpus.big_edge_blocks(0)
+    datas = [d for _, d, _ in rows]
+    blks = [b for *_, b in rows]
+    dec = dv.VectorDecoder(cuda)
+    assert dec.decode_batch(blks, [len(d) for d in datas]) == datas
+    assert dec.decode_batch_unknown(blks, [1 << 20] * len(blks)) == datas
+    assert dec.host_decodes == 0
+    enc = ev.VectorEncoder(cuda)
+    window = corpus.silesia_like(65536, 22)
+    for level in (0, 9):
+        got = enc.encode_batch(datas, hc_level=level)
+        assert got == ev.VectorEncoder("cpu").encode_batch(datas,
+                                                           hc_level=level)
+        assert dec.decode_batch(got, [len(d) for d in datas]) == datas
+        got = enc.encode_batch(datas, hc_level=level, dictionary=window)
+        assert dec.decode_batch(got, [len(d) for d in datas],
+                                window) == datas
+    assert enc.host_encodes == 0 and dec.host_decodes == 0
+
+
+@pytest.mark.gpu
+def test_big_unknown_decode_refuses_malformed_blocks_on_the_card(cuda):
+    """A 1 MB block from the card's fast encoder decodes under a 2 MB cap
+    with no host re-decode; each of its ``corpus.big_bad_blocks``, which
+    the header walk takes, raises the hardened decoder's error."""
+    data = corpus.silesia_like(1 << 20, seed=58)
+    enc = ev.VectorEncoder(cuda)
+    blk = enc.encode_batch([data])[0]
+    dec = dv.VectorDecoder(cuda)
+    cap = 2 << 20
+    assert dec.decode_batch_unknown([blk], [cap]) == [data]
+    assert enc.host_encodes == 0 and dec.host_decodes == 0
+    for _, bad in corpus.big_bad_blocks(blk):
+        with pytest.raises(reference.CorruptedBlockError) as want:
+            reference.decompress_block_unknown(bad, cap)
+        with pytest.raises(reference.CorruptedBlockError,
+                           match=re.escape(str(want.value))):
+            dec.decode_batch_unknown([bad], [cap])
+    assert dec.host_decodes == 3

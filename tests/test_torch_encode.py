@@ -84,19 +84,22 @@ def test_entry_points_on_cpu():
 
 
 def test_unported_requests_raise():
-    """Big blocks and P-mode rows wider than the encode kernels take
-    (ROADMAP A7b) raise; preset-dictionary encode is ported
-    (tests/test_torch_dictionary.py)."""
+    """Big blocks and P-mode rows wider than 106,496 positions (ROADMAP
+    A7b) no longer raise: they encode on the device and round-trip;
+    only a bad mode raises.  Preset-dictionary encode is held against
+    JAX in tests/test_torch_dictionary.py, big blocks in
+    tests/test_torch_bigblock.py."""
     enc = ev.VectorEncoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        enc.encode_batch([b"x" * (96 * 1024 + 1)])
+    data = b"x" * (96 * 1024 + 1)
+    assert reference.decompress_block(enc.encode_batch([data])[0],
+                                      len(data)) == data
     window = b"abc" * 20000
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        enc.encode_batch([b"abc" * 20000], dictionary=window)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        enc.encode_batch([b"abc" * 20000], hc_level=9, dictionary=window)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        codec.encode(b"abc" * 20000, dictionary=window, mode="fast",
-                     device="cpu")
+    data = b"abc" * 20000
+    for packed in (enc.encode_batch([data], dictionary=window)[0],
+                   codec.encode(data, dictionary=window, mode="fast",
+                                device="cpu")):
+        assert reference.decompress_block_dict(packed, window,
+                                               len(data)) == data
+    assert enc.host_encodes == 0
     with pytest.raises(ValueError, match="mode"):
         codec.encode(b"abc", mode="hc", device="cpu")

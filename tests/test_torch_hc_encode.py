@@ -70,17 +70,21 @@ def test_hc_entry_points_on_cpu(blocks):
 
 
 def test_hc_unported_requests_raise():
-    """Big blocks and P-mode rows wider than the encode kernels take
-    (ROADMAP A7b) raise; strict HC and preset-dictionary HC are ported
+    """Big blocks and P-mode rows wider than 106,496 positions (ROADMAP
+    A7b) no longer raise: fast-HC encodes them on the device and they
+    round-trip; strict HC and preset-dictionary HC are ported
     (tests/test_torch_dictionary.py)."""
     enc = ev.VectorEncoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        enc.encode_batch([b"x" * (96 * 1024 + 1)], hc_level=9)
+    data = b"x" * (96 * 1024 + 1)
+    assert reference.decompress_block(
+        enc.encode_batch([data], hc_level=9)[0], len(data)) == data
+    assert enc.host_encodes == 0
     assert codec.encode_hc(b"abc" * 100, device="cpu") \
         == reference.compress_block_hc(b"abc" * 100)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        codec.encode_hc(b"abc" * 20000, dictionary=b"abc" * 20000,
-                        mode="fast", device="cpu")
+    window = data = b"abc" * 20000
+    assert reference.decompress_block_dict(codec.encode_hc(
+        data, dictionary=window, mode="fast", device="cpu"), window,
+        len(data)) == data
     with pytest.raises(ValueError, match="mode"):
         codec.encode_hc(b"abc", mode="hc", device="cpu")
     with pytest.raises(ValueError, match="hc_tiers"):

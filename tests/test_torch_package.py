@@ -210,7 +210,7 @@ def test_cpu_path_launches_no_kernel():
         == [data]
     x, dl, D = _x_on("cpu", [data])
     _, O, S_cap = ev.batch_shapes(len(data))
-    out, out_len, _ = ev.encode_batch_chain(x, dl, D, O, S_cap)
+    out, out_len, _, _ = ev.encode_batch_chain(x, dl, D, O, S_cap)
     assert out[0, :int(out_len[0])].to(torch.uint8).numpy().tobytes() \
         == packed[0]
     window = data[:1000]
