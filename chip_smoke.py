@@ -4,7 +4,10 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the fifteen CUDA kernels from lz4net_tpu_torch/csrc with nvcc;
+2. builds the fifteen CUDA kernels from lz4net_tpu_torch/csrc with nvcc,
+   then selects the engines (lz4net_tpu_torch.registry, with its cache
+   pointed at an empty temporary directory; the AutoTest runs here, before
+   any counted call);
 3. runs each decode kernel and its plain PyTorch version on the card on
    the same inputs, at the shapes of the decode path below, requires
    every int output to be equal, and times both (CUDA events around 10
@@ -15,7 +18,9 @@
    also with a dictionary prefix of P = 8192 bytes (pre_len 0, 8192 and
    100 in turn) and on the edge rows (parse_edge_rows as parse_tokens
    marks them, then corpus.token_edge_rows: tied estarts, out_len inside
-   a token, tokens longer than a tile) at P = 0 and 8192;
+   a token, tokens longer than a tile) at P = 0 and 8192, each with
+   the block ends it writes for the block-end rules (the main shape also
+   without them);
    records_to_state also behind a full 64 KB window (P = 65,536, Dt =
    139,264, pre_len 65,536, 0 and 100 in turn); resolve_wavefront also
    with a dictionary prefix of one chunk passed through (start_chunk 1,
@@ -156,7 +161,12 @@
    short raise CorruptedBlockError; again with a 1 MB cap (and through
    codec.decode(max_output_length=)): byte-exact, no host re-decode, and
    a block that decodes to 128 KB too (a big block); prints ms per
-   batch;
+   batch; then the block-end rules (C3): the three corpus.big_bad_blocks
+   of a 30,000-byte block raise the host decoder's CorruptedBlockError
+   through codec.decode_batch, decode_batch_unknown (caps of 96 KB and
+   2 MB) and decompress_blocks_dict, corpus.block_end_rows give the
+   reference decoders' bytes or errors on each path, and the rows those
+   all take decode with no host re-decode;
 19. the facade on the card: codec.wrap, wrap_hc and unwrap round-trip a
    64 KB block, 4 KB of random bytes (stored raw) and an empty buffer;
    codec.encode_hc(mode="strict") and wrap_hc's payload equal
@@ -183,7 +193,9 @@
    (byte-exact, no host re-decode), a cap one byte short and, under a
    2 MB cap, the first block's corpus.big_bad_blocks (ending on a match,
    on an empty final literal run, on a giant match), which must raise
-   the host decoder's CorruptedBlockError;
+   the host decoder's CorruptedBlockError, as must the first block with
+   its final run cut to 3 literals (corpus.short_final_run) through
+   codec.decode_batch;
 22. encodes the 16 blocks through compress_blocks_fast and
    compress_blocks_hc_fast (level 9): no host encode, each kernel
    launched as the path says (one pass for the 256 segments), the first
@@ -199,7 +211,28 @@
    through compress_blocks_fast_dict (fast and HC level 9) and
    decompress_blocks_dict: no host encode or decode, the first fast
    payloads equal to the CPU path's, the first decoded on the host;
-25. prints one JSON line with the kernels (each with its launches by
+25. the stream cell: codec_name() must be "cuda/cuda/cudaHC"; the 16 MB
+   through lz4net_tpu_torch.stream at 1 MB chunks (16) and at 64 KB
+   (256): frames equal to those built from models.reference.
+   compress_block, one encode_sequencer launch a chunk; a read-all
+   (decompress_stream: one codec.decode_batch call for every chunk) and
+   1 MB read() calls (a call for each 1 MB of chunks), byte-exact with no
+   host re-decode, the decode kernels launched as those calls imply (a
+   pass a call, a pass a fragment wave for 1 MB chunks); MB/s written and
+   read (host clock) and the device's idle share of a read-all
+   (torch.profiler); 1 MB through an HC stream at 64 KB (frames equal to
+   reference.compress_block_hc's); an interactive read over a local
+   socket pair returning each chunk as it arrives;
+26. the tools as subprocesses: python -m lz4net_tpu_torch compress and
+   decompress of the 16 MB file (byte-exact), verify on 1 MB, info
+   (naming the card), continuous --mb 16 (both engines verified), and
+   python -m lz4net_tpu_torch.tools.certify (CERTIFIED);
+27. python -m lz4net_tpu_torch select on the card into the selection
+   cache, then, selected again in this process with that cache:
+   codec_name() must still be "cuda/cuda/cudaHC", and a read-all of 4 MB
+   of 64 KB stream frames must decode on the card (host_decodes=0, each
+   decode kernel launched once);
+28. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -209,10 +242,12 @@ or without the package beside this script, it exits non-zero at once.
 
 import cProfile
 import json
+import os
 import pstats
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 CORPUS_BYTES = 16 << 20
@@ -1405,6 +1440,8 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
           f"pass {dev_ms:.3f} ms (D={Dc}), {n_data / dev_ms / 1e6:.3f} "
           f"GB/s; {card}")
 
+    block_end_gates(card)
+
     # ---- slice phase: the facade -----------------------------------------
     noise = np.random.default_rng(SEED).integers(0, 256, RECORD,
                                                  np.uint8).tobytes()
@@ -1535,12 +1572,14 @@ def big_phases(torch, card, kernel_row, rows, data, fast_total):
         lambda: parse_kernel.parse_tokens_reference(comp, comp_len, C),
         n_bytes=n_comp * i4 + Bw * C * i4 * 3 + Bw * i4 + Bw,
         n_ops=Bw * C * 30, variant=tag)
-    t0m, cidx, stats = kernel_row(
+    t0m, cidx, stats, _ends = kernel_row(
         "records_to_state", "", "", records_kernel,
-        lambda: records_kernel.records_to_state(
-            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P),
-        lambda: records_kernel.records_to_state_reference(
-            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P),
+        with_ends(lambda e: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P, e),
+            Bw),
+        with_ends(lambda e: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, P, e),
+            Bw),
         n_bytes=Bw * C * i4 + 3 * n_comp * i4 + 3 * Bw * i4
         + 2 * Bw * Dt * i4 + Bw * 8 * i4,
         n_ops=Bw * C * 30 + Bw * Dt * 20,
@@ -1717,6 +1756,20 @@ def big_phases(torch, card, kernel_row, rows, data, fast_total):
                      f"{e!r}, the host decoder {want!r}")
         else:
             fail(f"big-block unknown-length decode: {name} did not raise")
+    # the known-length block-end rules on the header walk: the first
+    # block with its final run cut to 3 literals
+    short, n_short = corpus.short_final_run(packed[0])
+    want = _outcome(reference, lambda: reference.decompress_block(
+        short, n_short))
+    before = dec.host_decodes
+    got = _outcome(reference, lambda: codec.decode_batch(
+        [short], [n_short], device="cuda"))
+    if not isinstance(want, Exception) or not _same(got, want) \
+            or dec.host_decodes != before + 1:
+        fail(f"big-block decode: the first block cut to 3 final literals "
+             f"gave {got!r}, the host decoder {want!r}")
+    print(f"big_decode: the first block cut to 3 final literals raises "
+          f"{want!r} through codec.decode_batch, as the host decoder")
     walls = host_walls(torch, lambda: dec.decode_batch_unknown(
         packed, [2 * BIG_BLOCK] * len(packed)), 3)
     print(f"big_unknown slice: caps of 1 MB and 2 MB byte-exact, "
@@ -1836,6 +1889,424 @@ def big_phases(torch, card, kernel_row, rows, data, fast_total):
                   f"({sum(map(len, got)) / sum(blens):.4f}); first call "
                   f"{ms:.1f} ms (host clock); {card}")
     return by_path
+
+
+def _outcome(reference, call):
+    """``call()``'s result, or the CorruptedBlockError it raised."""
+    try:
+        return call()
+    except reference.CorruptedBlockError as exc:
+        return exc
+
+
+def _same(a, b) -> bool:
+    """Equal bytes, or errors with equal messages."""
+    if isinstance(a, Exception) or isinstance(b, Exception):
+        return type(a) is type(b) and str(a) == str(b)
+    return a == b
+
+
+def block_end_gates(card):
+    """Step 18's gates of the block-end rules (C3) on the card.  Each of
+    ``corpus.big_bad_blocks`` of a 30,000-byte block must raise the host
+    decoder's CorruptedBlockError through ``codec.decode_batch`` (at the
+    length its header walk gives), ``decode_batch_unknown`` (caps of
+    96 KB and 2 MB) and ``decompress_blocks_dict``, each through one host
+    decode; every row of ``corpus.block_end_rows`` must give the
+    reference decoders' bytes or errors on each path (caps of n, n + 1,
+    96 KB and 2 MB), and the rows they all take must decode in one batch
+    a path with no host decode."""
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import bigblock
+    from lz4net_tpu_torch.utils import corpus
+
+    dec = cuda_engine.decoder("cuda")
+    window = corpus.silesia_like(5000, seed=21)
+    small = reference.compress_block(corpus.silesia_like(30000, seed=3))
+    for name, bad in corpus.big_bad_blocks(small):
+        n = bigblock.scan(bad)[2]
+        for what, call, host in (
+                ("codec.decode_batch",
+                 lambda: codec.decode_batch([bad], [n], device="cuda"),
+                 lambda: reference.decompress_block(bad, n)),
+                ("decode_batch_unknown (96 KB cap)",
+                 lambda: dec.decode_batch_unknown([bad], [96 * 1024]),
+                 lambda: reference.decompress_block_unknown(bad, 96 * 1024)),
+                ("decode_batch_unknown (2 MB cap)",
+                 lambda: dec.decode_batch_unknown([bad], [2 << 20]),
+                 lambda: reference.decompress_block_unknown(bad, 2 << 20)),
+                ("decompress_blocks_dict",
+                 lambda: cuda_engine.decompress_blocks_dict(
+                     [bad], [n], window, "cuda"),
+                 lambda: reference.decompress_block_dict(bad, window, n))):
+            want = _outcome(reference, host)
+            before = dec.host_decodes
+            got = _outcome(reference, call)
+            if not isinstance(want, Exception) or not _same(got, want) \
+                    or dec.host_decodes != before + 1:
+                fail(f"block-end rules: {name} of a 30,000-byte block "
+                     f"through {what} gave {got!r}, the host decoder "
+                     f"{want!r}")
+    rows = corpus.block_end_rows()
+    taken = []
+    for name, blk, n in rows:
+        cases = [(lambda: dec.decode_batch([blk], [n])[0],
+                  lambda: reference.decompress_block(blk, n)),
+                 (lambda: dec.decode_batch([blk], [n], dictionary=window)[0],
+                  lambda: reference.decompress_block_dict(blk, window, n))]
+        cases += [(lambda c=c: dec.decode_batch_unknown([blk], [c])[0],
+                   lambda c=c: reference.decompress_block_unknown(blk, c))
+                  for c in (n, n + 1, 96 * 1024, 2 << 20)]
+        outs = [(_outcome(reference, call), _outcome(reference, host))
+                for call, host in cases]
+        if not all(_same(g, w) for g, w in outs):
+            fail(f"block-end rules: {name} gives {outs}")
+        if not any(isinstance(w, Exception) for _, w in outs):
+            taken.append((blk, n))
+    blks, lens = [b for b, _ in taken], [n for _, n in taken]
+    dec.host_decodes = 0
+    want = [reference.decompress_block(b, n) for b, n in taken]
+    if dec.decode_batch(blks, lens) != want \
+            or dec.decode_batch(blks, lens, dictionary=window) != want \
+            or dec.decode_batch_unknown(blks, lens) != want \
+            or dec.decode_batch_unknown(blks, [2 << 20] * len(blks)) != want:
+        fail("block-end rules: the rows every decoder takes differ")
+    if dec.host_decodes != 0:
+        fail(f"block-end rules: {dec.host_decodes} of the well-formed edge "
+             f"rows were decoded on the host")
+    print(f"block-end rules: the 3 big_bad_blocks of a 30,000-byte block "
+          f"raise the host decoder's error through codec.decode_batch, "
+          f"decode_batch_unknown (96 KB and 2 MB caps) and "
+          f"decompress_blocks_dict; {len(rows)} block_end_rows give the "
+          f"reference decoders' bytes or errors on each path, the "
+          f"{len(taken)} they all take decode on the card with "
+          f"host_decodes=0; {card}")
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def reference_frames(chunks, payloads, hc: bool) -> bytes:
+    """The LZ4Stream frames of ``chunks`` (lz4net's chunk records: varint
+    flags, original length, payload length, payload; a chunk whose
+    payload does not shrink it stored raw) built from ``payloads``, the
+    reference compressor's bytes for each chunk."""
+    out = bytearray()
+    for raw, p in zip(chunks, payloads):
+        packed = bool(p) and len(p) < len(raw)
+        out += _varint((1 if packed else 0) | (2 if hc else 0))
+        out += _varint(len(raw))
+        out += _varint(len(p)) + p if packed else raw
+    return bytes(out)
+
+
+def stream_phases(torch, card, rows, data, blocks, packed):
+    """Step 25: the 16 MB through LZ4Stream on the card at 1 MB and 64 KB
+    chunks, in HC at 64 KB, and an interactive read over a socket pair.
+    Returns the launches by path."""
+    import io
+    import socket
+    import threading
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch import stream as lz
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import bigblock
+    from lz4net_tpu_torch.ops.decode_vector import VectorDecoder
+    from lz4net_tpu_torch.utils import corpus
+
+    if codec.codec_name() != "cuda/cuda/cudaHC":
+        fail(f"codec_name() is {codec.codec_name()!r}, not "
+             f"'cuda/cuda/cudaHC', with an empty selection cache")
+    dec = cuda_engine.decoder("cuda")
+    n_data = len(data)
+    big = corpus.split_blocks(data, BIG_BLOCK)
+    t = time.perf_counter()
+    ref_big = [reference.compress_block(b, len(b)) for b in big]
+    print(f"stream workload: the reference compressor's payloads of the 16 "
+          f"chunks of 1 MB in {time.perf_counter() - t:.1f} s on the host")
+    frames = {BIG_BLOCK: (big, reference_frames(big, ref_big, False)),
+              BLOCK: (blocks, reference_frames(blocks, packed, False))}
+    calls = []
+    real = codec.decode_batch
+
+    def counting(blocks_, lens_, device="cuda"):
+        calls.append(len(blocks_))
+        return real(blocks_, lens_, device=device)
+
+    def read_by_mb(framed):
+        s = lz.LZ4Stream(io.BytesIO(framed), lz.LZ4StreamMode.DECOMPRESS)
+        parts = []
+        while part := s.read(1 << 20):
+            parts.append(part)
+        return b"".join(parts)
+
+    by_path = {}
+    codec.decode_batch = counting
+    try:
+        for chunk, (chunks, want) in frames.items():
+            tag = "1mb" if chunk == BIG_BLOCK else "64kb"
+            k = len(chunks)
+            framed, w_ms, launches = first_call(
+                torch, rows, lambda: lz.compress_stream(data,
+                                                        block_size=chunk),
+                ["encode_sequencer"])
+            by_path[f"stream_write_{tag}"] = launches
+            if framed != want:
+                fail(f"stream at {chunk}-byte chunks: the frames differ "
+                     f"from those of reference.compress_block")
+            if launches["encode_sequencer"] != k:
+                fail(f"stream write at {chunk}-byte chunks: launches "
+                     f"{launches}, one encode_sequencer a chunk expected")
+            # what the reads imply: a read-all decodes every compressed
+            # chunk in one decode_batch call, 1 MB reads a call for each
+            # 1 MB of chunks (`want` stops the read-ahead); a call makes a
+            # device pass, a chunk over 96 KB a pass a fragment wave
+            pays = ref_big if chunk == BIG_BLOCK else packed
+            waves = [0 if not p or len(p) >= len(c) else
+                     len(bigblock.split_fragments(p, len(c)))
+                     if len(c) > VectorDecoder.MAX_BLOCK else 1
+                     for c, p in zip(chunks, pays)]
+            per = (1 << 20) // chunk
+            groups = [waves[j:j + per] for j in range(0, k, per)]
+            for how, call, want_calls, want_launch in (
+                    ("read_all", lambda: lz.decompress_stream(framed),
+                     [sum(map(bool, waves))], max(waves)),
+                    ("read_1mb", lambda: read_by_mb(framed),
+                     [sum(map(bool, g)) for g in groups if any(g)],
+                     sum(max(g) for g in groups))):
+                calls.clear()
+                dec.host_decodes = 0
+                got, r_ms, launches = first_call(torch, rows, call,
+                                                 DECODE_KERNELS)
+                by_path[f"stream_{how}_{tag}"] = launches
+                if got != data:
+                    fail(f"stream {how} at {chunk}-byte chunks: the bytes "
+                         f"differ from the source")
+                if dec.host_decodes != 0:
+                    fail(f"stream {how} at {chunk}-byte chunks: "
+                         f"{dec.host_decodes} chunks decoded on the host")
+                if calls != want_calls:
+                    fail(f"stream {how} at {chunk}-byte chunks: "
+                         f"decode_batch calls of {calls} chunks, "
+                         f"{want_calls} expected")
+                if any(v != want_launch for v in launches.values()):
+                    fail(f"stream {how} at {chunk}-byte chunks: launches "
+                         f"{launches}, {want_launch} each expected")
+                print(f"stream {how} at {chunk}-byte chunks: byte-exact, "
+                      f"host_decodes=0, {len(calls)} decode_batch calls, "
+                      f"launches {launches}; first call {r_ms:.1f} ms; "
+                      f"{card}")
+            w_walls = host_walls(torch, lambda: lz.compress_stream(
+                data, block_size=chunk), 2)
+            r_walls = host_walls(torch, lambda: lz.decompress_stream(
+                framed), 3)
+            w, r = statistics.median(w_walls), statistics.median(r_walls)
+            print(f"stream_{tag} cell: {n_data} bytes in {k} chunks of "
+                  f"{chunk} -> {len(framed)} bytes, equal to the reference "
+                  f"compressor's frames; write (compress_stream, strict on "
+                  f"the card) first {w_ms:.1f} ms, then "
+                  + " ".join(f"{x:.1f}" for x in w_walls)
+                  + f" ms, {n_data / w / 1e3:.2f} MB/s; read-all "
+                  f"(decompress_stream) " + " ".join(f"{x:.1f}"
+                                                     for x in r_walls)
+                  + f" ms, {n_data / r / 1e3:.2f} MB/s (host clock); {card}")
+            where_the_time_goes(torch, lambda: lz.decompress_stream(framed),
+                                f"stream_read_all_{tag}", n_data, "decoded",
+                                card)
+    finally:
+        codec.decode_batch = real
+
+    # ---- HC: 1 MB at 64 KB chunks (strict HC runs on the host) ---------
+    hc_data = data[:BIG_BLOCK]
+    hc_chunks = corpus.split_blocks(hc_data, BLOCK)
+    t = time.perf_counter()
+    want = reference_frames(hc_chunks, [reference.compress_block_hc(
+        c, len(c)) for c in hc_chunks], True)
+    ref_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    framed = lz.compress_stream(hc_data, high_compression=True,
+                                block_size=BLOCK)
+    w_ms = (time.perf_counter() - t) * 1e3
+    if framed != want:
+        fail("HC stream: the frames differ from those of "
+             "reference.compress_block_hc")
+    dec.host_decodes = 0
+    t = time.perf_counter()
+    if lz.decompress_stream(framed) != hc_data or dec.host_decodes != 0:
+        fail("HC stream: the read differs from the source or decoded on "
+             "the host")
+    r_ms = (time.perf_counter() - t) * 1e3
+    print(f"stream_hc cell: 1 MB in 16 chunks of 64 KB -> {len(framed)} "
+          f"bytes, equal to reference.compress_block_hc's frames; write "
+          f"{w_ms:.0f} ms ({len(hc_data) / w_ms / 1e3:.3f} MB/s; the "
+          f"reference HC parse, on the host, {ref_ms:.0f} ms), read-all "
+          f"{r_ms:.1f} ms, host_decodes=0 (host clock); {card}")
+
+    # ---- an interactive read over a socket pair ------------------------
+    parts = [data[j * BLOCK:(j + 1) * BLOCK] for j in range(4)]
+    stall = 0.2
+    server, client = socket.socketpair()
+
+    def serve():
+        with server, server.makefile("wb") as sink:
+            s = lz.LZ4Stream(sink, lz.LZ4StreamMode.COMPRESS,
+                             block_size=BLOCK)
+            for part in parts:
+                s.write(part)
+                s.flush()                 # one wire chunk a part
+                sink.flush()
+                time.sleep(stall)
+            s.close()
+
+    writer = threading.Thread(target=serve, daemon=True)
+    got, arrival = [], []
+    t0 = time.monotonic()
+    writer.start()
+    with client, client.makefile("rb") as source:
+        s = lz.LZ4Stream(source, lz.LZ4StreamMode.DECOMPRESS,
+                         lz.LZ4StreamFlags.INTERACTIVE_READ)
+        while chunk := s.read(10 << 20):
+            got.append(chunk)
+            arrival.append(time.monotonic() - t0)
+    writer.join(timeout=30)
+    if writer.is_alive() or b"".join(got) != b"".join(parts):
+        fail("interactive read: the bytes differ from what was written")
+    if [len(g) for g in got] != [BLOCK] * 4 or arrival[0] >= 3 * stall:
+        fail(f"interactive read: reads of {[len(g) for g in got]} bytes at "
+             f"{arrival} s; one a chunk, the first before the writer's "
+             f"stalls end, expected")
+    print(f"interactive read over a socket pair: 4 chunks of 64 KB "
+          f"written with {stall} s stalls arrive one a read at "
+          + " ".join(f"{a:.3f}" for a in arrival) + f" s; {card}")
+    return by_path
+
+
+def tools_phases(torch, card, data, name):
+    """Step 26: the command line and the certify tool as subprocesses on
+    the card (each stopped by its time limit at the latest)."""
+    import os
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def tool(*args, timeout=300):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", *args],
+                           capture_output=True, text=True, timeout=timeout,
+                           env=env, cwd=here)
+        if r.returncode != 0:
+            fail(f"python -m {' '.join(args)}: rc {r.returncode}: "
+                 f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+        return r, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, packed, back, one = (os.path.join(tmp, f) for f in (
+            "corpus.bin", "corpus.lz4s", "back.bin", "one.bin"))
+        with open(src, "wb") as fh:
+            fh.write(data)
+        _, c_s = tool("lz4net_tpu_torch", "compress", src, packed)
+        _, d_s = tool("lz4net_tpu_torch", "decompress", packed, back)
+        with open(back, "rb") as fh:
+            if fh.read() != data:
+                fail("CLI: decompress does not give the compressed file")
+        print(f"CLI compress and decompress of {len(data)} bytes (1 MB "
+              f"chunks): byte-exact, {c_s:.1f} s and {d_s:.1f} s of "
+              f"subprocess each, start-up included; {card}")
+        with open(one, "wb") as fh:
+            fh.write(data[:BIG_BLOCK])
+        r, v_s = tool("lz4net_tpu_torch", "verify", one)
+        if r.stdout.count("round-trip OK") != 2 \
+                or "codec: cuda/cuda/cudaHC" not in r.stdout:
+            fail(f"CLI verify: {r.stdout}")
+        r, i_s = tool("lz4net_tpu_torch", "info")
+        if name not in r.stdout:
+            fail(f"CLI info does not name the card: {r.stdout}")
+        out = os.path.join(tmp, "results.json")
+        r, k_s = tool("lz4net_tpu_torch", "continuous", "--mb", "16",
+                      "--out", out, timeout=600)
+        run = json.loads(r.stdout)
+        if set(run["engines"]) != {"cuda", "python-reference"} \
+                or not all(e.get("verified") for e in run["engines"].values()):
+            fail(f"CLI continuous: {run}")
+        print(f"CLI verify (1 MB, strict and HC streams) {v_s:.1f} s, info "
+              f"names the card ({i_s:.1f} s), continuous --mb 16 "
+              f"{k_s:.1f} s: "
+              + "; ".join(f"{e}: encode {r_['encode_MBps']} MB/s, decode "
+                          f"{r_['decode_MBps']} MB/s, HC "
+                          f"{r_['encode_hc_MBps']} MB/s on "
+                          f"{r_['corpus_mb']} MB"
+                          for e, r_ in run["engines"].items())
+              + f" (host clock, one block a call); {card}")
+        r, t_s = tool("lz4net_tpu_torch.tools.certify")
+        if "CERTIFIED" not in r.stdout.splitlines()[-1]:
+            fail(f"certify: {r.stdout}")
+        print(f"certify: {r.stdout.strip().splitlines()[-1]} in {t_s:.1f} s "
+              f"of subprocess; {card}")
+
+
+def select_phase(torch, card, rows, data):
+    """Step 27: a measured selection on the card never moves its main
+    path to the host.  Returns the launches of the read."""
+    from lz4net_tpu_torch import codec, registry
+    from lz4net_tpu_torch import stream as lz
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lz4net_tpu_torch", "select"],
+                       capture_output=True, text=True, timeout=300, env=env,
+                       cwd=here)
+    if r.returncode != 0:
+        fail(f"python -m lz4net_tpu_torch select: rc {r.returncode}: "
+             f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    if got["cache"] != registry._select_cache_path() \
+            or got["codec_name"] != "cuda/cuda/cudaHC":
+        fail(f"select on the card: {got}")
+    s_s = time.perf_counter() - t
+    registry.initialize(force=True)
+    if codec.codec_name() != "cuda/cuda/cudaHC":
+        fail(f"after select, codec_name() is {codec.codec_name()!r}")
+    part = data[:4 << 20]
+    framed = lz.compress_stream(part, block_size=BLOCK)
+    dec = cuda_engine.decoder("cuda")
+    dec.host_decodes = 0
+    back, r_ms, launches = first_call(
+        torch, rows, lambda: lz.decompress_stream(framed), DECODE_KERNELS)
+    if back != part or dec.host_decodes != 0 \
+            or any(v != 1 for v in launches.values()):
+        fail(f"stream read after select: byte-exact {back == part}, "
+             f"host_decodes={dec.host_decodes}, launches {launches} (one "
+             f"each expected)")
+    print(f"select on the card ({s_s:.1f} s of subprocess): orders "
+          f"{got['orders']}; selected again: {codec.codec_name()}; a "
+          f"read-all of {len(part)} bytes in 64 KB frames byte-exact, "
+          f"host_decodes=0, launches {launches}, {r_ms:.1f} ms; {card}")
+    return launches
+
+
+def with_ends(call, B):
+    """A call of ``records_to_state`` (or its plain version) that passes
+    ``call`` a [B, 4] block-ends buffer: its outputs and the buffer."""
+    def run():
+        import torch
+        ends = torch.full((B, 4), -7, dtype=torch.int32, device="cuda")
+        return (*call(ends), ends)
+    return run
 
 
 def _uint8_rows(torch, rows):
@@ -2061,6 +2532,11 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
 
 
 def main() -> int:
+    with tempfile.TemporaryDirectory() as select_cache:
+        return smoke(select_cache)
+
+
+def smoke(select_cache) -> int:
     try:
         import torch
     except ImportError:
@@ -2071,7 +2547,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     try:
-        from lz4net_tpu_torch import _build, codec
+        from lz4net_tpu_torch import _build, codec, registry
         from lz4net_tpu_torch.models import cuda as cuda_engine
         from lz4net_tpu_torch.models import reference
         from lz4net_tpu_torch.ops import decode_vector as dv
@@ -2094,6 +2570,14 @@ def main() -> int:
     t = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t:.1f} s")
+    # the engine selection, from an empty cache so that no order persisted
+    # on this machine moves an engine, before any call whose launches
+    # are counted (the AutoTest launches kernels)
+    os.environ["LZ4NET_SELECT_CACHE"] = select_cache
+    t = time.perf_counter()
+    registry.initialize()
+    print(f"registry: {codec.codec_name()} selected, AutoTest in "
+          f"{(time.perf_counter() - t) * 1e3:.0f} ms")
 
     # ---- workload: bench.py's 16 MB in 64 KB blocks ---------------------
     t = time.perf_counter()
@@ -2188,16 +2672,26 @@ def main() -> int:
         + ecomp.shape[0] * (i4 + 1),
         n_ops=ecomp.numel() * 30,
         variant=f"edge rows, B={ecomp.shape[0]}, C={eC}")
-    t0m, cidx, _stats = kernel_row(
+    # with the block ends (ops/decode_vector.device_pass asks for them)
+    t0m, cidx, _stats, _ends = kernel_row(
         "records_to_state", "lz4net_tpu_torch/csrc/records_kernel.cu",
         "lz4net_tpu/ops/records_kernel.py:374", records_kernel,
+        with_ends(lambda e: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, 0, e), B),
+        with_ends(lambda e: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, 0, e), B),
+        n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
+        + 2 * B * Dt * i4 + B * 12 * i4,
+        n_ops=B * C * 30 + B * Dt * 20)
+    kernel_row(
+        "records_to_state", "", "", records_kernel,
         lambda: records_kernel.records_to_state(
             comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, 0),
         lambda: records_kernel.records_to_state_reference(
             comp, mark, ll, ml, comp_len, out_len, pre_len, C, Dt, 0),
         n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
         + 2 * B * Dt * i4 + B * 8 * i4,
-        n_ops=B * C * 30 + B * Dt * 20)
+        n_ops=B * C * 30 + B * Dt * 20, variant="without the block ends")
     # a dictionary prefix of P = 8192 bytes (pre_len 0, P and 100 in turn)
     P8 = 8192
     pre8 = torch.tensor([(0, P8, 100)[j % 3] for j in range(B)],
@@ -2218,10 +2712,12 @@ def main() -> int:
                          dtype=torch.int32, device="cuda")
     kernel_row(
         "records_to_state", "", "", records_kernel,
-        lambda: records_kernel.records_to_state(
-            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64),
-        lambda: records_kernel.records_to_state_reference(
-            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64),
+        with_ends(lambda e: records_kernel.records_to_state(
+            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64,
+            e), B),
+        with_ends(lambda e: records_kernel.records_to_state_reference(
+            comp, mark, ll, ml, comp_len, out_len, pre64, C, P64 + Dt, P64,
+            e), B),
         n_bytes=B * C * i4 + 3 * n_comp * i4 + 3 * B * i4
         + 2 * B * (P64 + Dt) * i4 + B * 8 * i4,
         n_ops=B * C * 30 + B * (P64 + Dt) * 20,
@@ -2245,10 +2741,10 @@ def main() -> int:
                             device="cuda")
         kernel_row(
             "records_to_state", "", "", records_kernel,
-            lambda: records_kernel.records_to_state(*rargs, epre, eC,
-                                                    eP + eDt, eP),
-            lambda: records_kernel.records_to_state_reference(
-                *rargs, epre, eC, eP + eDt, eP),
+            with_ends(lambda e: records_kernel.records_to_state(
+                *rargs, epre, eC, eP + eDt, eP, e), eB),
+            with_ends(lambda e: records_kernel.records_to_state_reference(
+                *rargs, epre, eC, eP + eDt, eP, e), eB),
             n_bytes=eB * eC * i4 + 3 * int(rargs[4].clamp(0, eC).sum()) * i4
             + 3 * eB * i4 + 2 * eB * (eP + eDt) * i4 + eB * 8 * i4,
             n_ops=eB * eC * 30 + eB * (eP + eDt) * 20,
@@ -2373,10 +2869,14 @@ def main() -> int:
                                 packed)
     big_launches = big_phases(torch, card, kernel_row, rows, data,
                               fast_total)
-    paths = [("decode", launches), ("encode", enc_launches),
+    stream_launches = stream_phases(torch, card, rows, data, blocks, packed)
+    tools_phases(torch, card, data, name)
+    select_launches = select_phase(torch, card, rows, data)
+    paths = [("stream_read_after_select", select_launches),
+             ("decode", launches), ("encode", enc_launches),
              *strict_launches.items(), *hc_launches.items(),
              *chain_launches.items(), *dict_launches.items(),
-             *big_launches.items()]
+             *big_launches.items(), *stream_launches.items()]
     for row in rows:
         del row["module"], row["counter"]
         by_path = {path: counts[row["name"]] for path, counts in paths

@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, the stream last (csrc/*.cu)
 SIGNATURES = {
     "lz4t_parse_tokens": [_P] * 6 + [_I, _I, _P],
-    "lz4t_records_to_state": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "lz4t_records_to_state": [_P] * 12 + [_I, _I, _I, _I, _P],
     "lz4t_rowbase_gather": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_resolve_wavefront": [_P] * 4 + [_I, _I, _I, _P],
     "lz4t_bucket_prev": [_P] * 6 + [_I, _I, _P],

@@ -2,24 +2,28 @@
 ``codec_name``, :19-21, strict and fast encode, :33-66, fast-HC and
 strict HC encode, :69-101, decode of known, unknown and
 preset-dictionary length, :104-132, batched decode, :135-157, and the
-8-byte wrap envelope, :160-200).  Every call takes ``device=``: the card
-(``"cuda"``) unless the caller asks for the CPU."""
+8-byte wrap envelope, :160-200).  The strict paths and decode go through
+the engines ``registry`` selected for the device; the fast modes run the
+card's vector encoder directly, as the JAX package's run its TPU engine
+directly.
+Every call takes ``device=``: the card (``"cuda"``) unless the caller
+asks for the CPU."""
 
 from __future__ import annotations
 
 import struct
 
+from . import registry
 from .constants import (HC_LEVEL_DEFAULT, WRAP_HEADER_LENGTH,
                         maximum_output_length)
 from .models import cuda
-from .models.service_adapters import CudaService
 
 
-def codec_name() -> str:
-    """"encoder/decoder/encoderHC" triple of the engines serving the
-    facade: the CUDA engine for all three."""
-    name = CudaService.codec_name
-    return f"{name}/{name}/{name}"
+def codec_name(device="cuda") -> str:
+    """"encoder/decoder/encoderHC" triple of the engines ``registry``
+    selected for ``device``, in the JAX package's format
+    (``"cuda/cuda/cudaHC"`` by the static order)."""
+    return registry.codec_name(device)
 
 
 def _check_mode(mode: str) -> None:
@@ -55,7 +59,7 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
         return cuda.compress_block_dict(dictionary, bytes(src), dst_maxlen,
                                         device)
     if mode == "strict":
-        return CudaService(device).encode(bytes(src), dst_maxlen)
+        return registry.encoder(device).encode(bytes(src), dst_maxlen)
     return cuda.compress_blocks_fast([bytes(src)], [dst_maxlen], device)[0]
 
 
@@ -86,7 +90,8 @@ def encode_hc(src: bytes, dst_maxlen: int | None = None,
         return cuda.compress_block_hc_dict(dictionary, bytes(src),
                                            dst_maxlen, level, device)
     if mode == "strict":
-        return CudaService(device).encode_hc(bytes(src), dst_maxlen, level)
+        return registry.encoder_hc(device).encode_hc(bytes(src), dst_maxlen,
+                                                     level)
     return cuda.compress_blocks_hc_fast([bytes(src)], [dst_maxlen], level,
                                         device)[0]
 
@@ -106,30 +111,31 @@ def decode(src: bytes, output_length: int | None = None, *,
             raise ValueError("dictionary decode requires output_length")
         if output_length == 0:
             return b""
-        return CudaService(device).decode_dict(bytes(src), dictionary,
-                                               output_length)
+        return registry.decoder(device).decode_dict(bytes(src), dictionary,
+                                                    output_length)
     if output_length is not None:
         if output_length == 0:
             return b""
-        return CudaService(device).decode(bytes(src), output_length)
+        return registry.decoder(device).decode(bytes(src), output_length)
     if max_output_length is None:
         raise ValueError(
             "either output_length or max_output_length is required")
     if len(src) == 0:
         return b""
-    return CudaService(device).decode_unknown(bytes(src), max_output_length)
+    return registry.decoder(device).decode_unknown(bytes(src),
+                                                   max_output_length)
 
 
 def decode_batch(blocks, output_lengths, device="cuda") -> list:
-    """Batched known-length decode of independent blocks in one device
-    pass; blocks of decoded length 0 decode to b"" without a pass."""
+    """Batched known-length decode of independent blocks: one device pass
+    on the ``cuda`` engine (the stream's read-ahead path); blocks of
+    decoded length 0 decode to b"" without one."""
     blocks = [bytes(b) for b in blocks]
     output_lengths = list(output_lengths)
-    svc = CudaService(device)
     nonzero = [i for i, n in enumerate(output_lengths) if n > 0]
     results = [b""] * len(blocks)
-    sub = svc.decode_batch([blocks[i] for i in nonzero],
-                           [output_lengths[i] for i in nonzero])
+    sub = registry.decoder(device).decode_batch(
+        [blocks[i] for i in nonzero], [output_lengths[i] for i in nonzero])
     for i, r in zip(nonzero, sub):
         results[i] = r
     return results

@@ -1,7 +1,7 @@
 """LZ4 block-format constants used by the PyTorch/CUDA port.
 
 The port's own copy of the values it needs from the JAX package's
-``lz4net_tpu/constants.py:10-70`` (the format is normatively described by
+``lz4net_tpu/constants.py:10-78`` (the format is normatively described by
 the LZ4 block format description; the fast-compressor tuning mirrors the
 r88/r93 reference so ``models.reference.compress_block`` stays
 bit-identical to the reference parse).
@@ -70,3 +70,11 @@ def maximum_output_length(input_length: int) -> int:
 
 # --- envelope --------------------------------------------------------------
 WRAP_HEADER_LENGTH = 8           # u32le original length, u32le payload length
+
+# --- LZ4Stream chunk framing (lz4net's own, not the official LZ4 frame) ----
+CHUNK_COMPRESSED = 0x01
+CHUNK_HIGH_COMPRESSION = 0x02
+CHUNK_PASSES_MASK = 0x04 | 0x08 | 0x10   # reserved, only 0 supported
+
+DEFAULT_BLOCK_SIZE = 1024 * 1024
+MIN_BLOCK_SIZE = 16

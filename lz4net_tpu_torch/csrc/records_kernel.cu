@@ -39,7 +39,10 @@
 //     with the RLE overlap collapsed, or VFLAG) and literal source cidx
 //     from the token's fields, loaded once per token it meets, and
 //     writes them with int4 stores.  The block's first tile also writes
-//     the certificate.
+//     the certificate and, where the caller asks for them, the positions
+//     the reference decoders' block-end rules bind on, read from the
+//     token table at the block's last two tokens (ops/records_kernel.py's
+//     ``ends``).
 //
 // Domain: estart never decreases, which holds for parse_tokens' output
 // (each token's ll + ml is at most 274 times the compressed bytes it
@@ -64,6 +67,7 @@ constexpr int THREADS = 512;
 constexpr int ITEMS = 8;
 constexpr int SEG = THREADS * ITEMS;     // C is a multiple of this
 constexpr int EXPAND = THREADS * ITEMS;  // output bytes of a tile
+constexpr int NO_END = -(1 << 30);       // ends of a block without a match
 
 // look-back words: flag << 62 | rank sum << 32 | adv sum (mod 2^32)
 constexpr unsigned long long NOT_READY = 0, AGGREGATE = 1, INCLUSIVE = 2;
@@ -271,12 +275,19 @@ scan_kernel(const int* __restrict__ comp_all, const int* __restrict__ mark_all,
 }
 
 // The block's certificate: stats[b] = (n_seqs, total_out, strict,
-// consumed, needed, 0, 0, 0) from the scan's partials.
-__device__ void certificate(const int* __restrict__ ml_in,
+// consumed, needed, 0, 0, 0) from the scan's partials; and, if ends is
+// not null, ends[b] = the last match's (literal end in comp, literal end
+// and match end in the output from P, the final token's offset where the
+// match length has extension bytes) from the token table.
+__device__ void certificate(const int* __restrict__ comp_all,
+                            const int* __restrict__ ml_in,
                             const int* __restrict__ comp_len_all,
-                            const int* __restrict__ tok_om, Ctrl ctrl,
-                            int* __restrict__ stats, int b, int n_seqs,
-                            int C, int Dt) {
+                            const int* __restrict__ tok_est, Ctrl ctrl,
+                            int* __restrict__ stats, int* __restrict__ ends,
+                            int b, int n_seqs, int C, int Dt, int P) {
+  const int* tok_mdst = tok_est + C;
+  const int* tok_cbase = tok_mdst + C;
+  const int* tok_om = tok_cbase + C;
   const int* acc = ctrl.acc + b * 8;
   const int n_tok = n_seqs > C ? C : n_seqs;
   // the last sequence carries no match (has_match = rank < n_seqs): take
@@ -298,14 +309,33 @@ __device__ void certificate(const int* __restrict__ ml_in,
   st[5] = 0;   // window misses cannot happen with exact reads
   st[6] = 0;
   st[7] = 0;
+  if (ends == nullptr) return;
+  int e[4] = {NO_END, NO_END, NO_END, NO_END};
+  if (n_tok >= 2) {
+    const int t = n_tok - 2;   // the last sequence with a match
+    const int est = tok_est[t], mdst = tok_mdst[t];
+    const int llq = (int)((unsigned)mdst - (unsigned)est);
+    const int hdrq = 1 + (llq >= 15 ? 1 + (llq - 15) / 255 : 0);
+    const int q = (int)((unsigned)tok_cbase[t] + (unsigned)est -
+                        (unsigned)hdrq);
+    e[0] = (int)((unsigned)tok_cbase[t] + (unsigned)mdst);  // q + hdr + ll
+    e[1] = (int)((unsigned)mdst - (unsigned)P);
+    e[2] = (int)((unsigned)tok_est[t + 1] - (unsigned)P);
+    if ((comp_all[(size_t)b * C + clampi(q, 0, C - 1)] & 15) == 15)
+      e[3] = acc[ACC_LASTQ];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ends[b * 4 + i] = e[i];
 }
 
 __global__ void __launch_bounds__(THREADS)
-expand_kernel(const int* __restrict__ ml_in,
+expand_kernel(const int* __restrict__ comp_all,
+              const int* __restrict__ ml_in,
               const int* __restrict__ comp_len_all,
               const int* __restrict__ tok_all, Ctrl ctrl,
               int* __restrict__ t0m, int* __restrict__ cidx,
-              int* __restrict__ stats, int C, int Dt, int nt, int nseg) {
+              int* __restrict__ stats, int* __restrict__ ends, int C,
+              int Dt, int P, int nt, int nseg) {
   using Scan = cub::BlockScan<int, THREADS, cub::BLOCK_SCAN_WARP_SCANS>;
   __shared__ typename Scan::TempStorage scan_tmp;
   __shared__ __align__(16) int owner[EXPAND];
@@ -326,7 +356,8 @@ expand_kernel(const int* __restrict__ ml_in,
 
   if (k >= nt) {        // Dt == 0: the certificate only
     if (threadIdx.x == 0)
-      certificate(ml_in, comp_len_all, tok_om, ctrl, stats, b, n_seqs, C, Dt);
+      certificate(comp_all, ml_in, comp_len_all, tok_est, ctrl, stats, ends,
+                  b, n_seqs, C, Dt, P);
     return;
   }
 
@@ -391,7 +422,8 @@ expand_kernel(const int* __restrict__ ml_in,
   }
   // the certificate, once a block, after the tile's stores are issued
   if (k == 0 && threadIdx.x == 0)
-    certificate(ml_in, comp_len_all, tok_om, ctrl, stats, b, n_seqs, C, Dt);
+    certificate(comp_all, ml_in, comp_len_all, tok_est, ctrl, stats, ends, b,
+                n_seqs, C, Dt, P);
 }
 
 }  // namespace
@@ -402,7 +434,7 @@ extern "C" int lz4t_records_to_state(const void* comp, const void* mark,
                                      const void* comp_len,
                                      const void* out_len,
                                      const void* pre_len, void* t0m,
-                                     void* cidx, void* stats,
+                                     void* cidx, void* stats, void* ends,
                                      void* tok_scratch, int B, int C,
                                      int Dt, int P, void* stream) {
   if (B <= 0) return 0;
@@ -430,7 +462,8 @@ extern "C" int lz4t_records_to_state(const void* comp, const void* mark,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lz4t::expand_kernel<<<dim3(nt > 0 ? nt : 1, B), lz4t::THREADS, 0, s>>>(
-      (const int*)ml, (const int*)comp_len, (const int*)tok_scratch, ctrl,
-      (int*)t0m, (int*)cidx, (int*)stats, C, Dt, nt, nseg);
+      (const int*)comp, (const int*)ml, (const int*)comp_len,
+      (const int*)tok_scratch, ctrl, (int*)t0m, (int*)cidx, (int*)stats,
+      (int*)ends, C, Dt, P, nt, nseg);
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,7 @@ def _synth_match(off: int, ml: int) -> bytes:
 def scan(block: bytes):
     """One walk over the sequence headers of ``block`` (literal bytes are
     skipped by length, never read): (comp_offs, out_offs, out_len,
-    giants), or None for malformed input.
+    giants, last), or None for malformed input.
 
     * comp_offs, out_offs: the compressed and output offsets of the first
       sequence at or past each ``OUT_TARGET`` mark, the first (0, 0);
@@ -73,7 +73,10 @@ def scan(block: bytes):
       bytes, each (comp_off, out_off, lit_len, lit_src, match_off,
       match_len) (``lz4tpu_giant_seqs`` there), or None beyond
       ``len(block) // OUT_TARGET + 8`` of them
-      (``models/native.giant_seqs``).
+      (``models/native.giant_seqs``);
+    * last: the output offsets where the block's last sequence with a
+      match ends its literals and its match, which the block-end rules
+      of the known-length decoders bind on; None without a match.
 
     The native library walks twice; on every input where its first walk
     succeeds the second walks the same headers, so one walk gives both.
@@ -84,6 +87,7 @@ def scan(block: bytes):
     max_segs = max(2, n // 16 + 2)
     max_g = max(2, n // OUT_TARGET + 8)
     comp_offs, out_offs, giants = [], [], []
+    last = None
     p = o = next_mark = 0
     while p < n:
         if o >= next_mark:
@@ -131,9 +135,10 @@ def scan(block: bytes):
         o += ll + ml
         if not ml:
             break
+        last = (o - ml, o)
     if p != n:
         return None
-    return comp_offs, out_offs, o, giants
+    return comp_offs, out_offs, o, giants, last
 
 
 def split_fragments(block: bytes, out_len: int, walk=None):
@@ -148,7 +153,7 @@ def split_fragments(block: bytes, out_len: int, walk=None):
     s = scan(block) if walk is None else walk
     if s is None or s[3] is None:
         return None
-    comp_offs, out_offs, _, giants = s
+    comp_offs, out_offs, giants = s[0], s[1], s[3]
 
     bounds = list(zip(comp_offs, out_offs))
     bounds.append((len(block), out_len))

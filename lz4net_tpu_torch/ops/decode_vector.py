@@ -32,6 +32,17 @@ fragments of at most 96 KB of output (``bigblock.split_fragments``, a
 walk over its sequence headers); fragment w of every big block of the
 batch decodes in one device pass, each behind its own window, the
 block's previous 64 KB of output, through the same prefix rows.
+
+The certificate holds no rule of the reference decoders at a block's
+end; ``records_to_state`` also gives the positions those rules bind on
+(its ``ends``): the ends of the block's last sequence with a match
+(positions only grow from one sequence to the next, so the earlier ones
+keep them too).  A block is accepted only where they hold: the
+known-length decoder's (``reference.decompress_block``) on the
+known-length and dictionary paths, the hardened decoder's
+(``reference._unknown_sequences``) on the unknown-length path.  A big
+block's are checked on its header walk (``bigblock.scan``), once for
+the block: a mid-block fragment ends on a match by design.
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import MAX_DISTANCE_WINDOW
+from ..constants import (COPYLENGTH, LASTLITERALS, MAX_DISTANCE_WINDOW,
+                         MFLIMIT)
 from ..models import reference
 from .bigblock import WINDOW, scan, split_fragments
 from .fused_gather import rowbase_gather
@@ -132,6 +144,36 @@ def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int,
     ``needed`` is the decoded size the parse implies, independent of
     ``out_len`` (the unknown-length path's return value).
     """
+    return device_pass(comp, comp_len, out_len, C, D, pre, pre_len)[:6]
+
+
+def known_ends_ok(lit_end: int, match_end: int, n: int) -> bool:
+    """The known-length decoder's block-end rules
+    (``reference.decompress_block``, and ``decompress_block_dict`` past
+    its window) on the last match of a block of ``n`` decoded bytes: its
+    literals end at most 8 bytes, and it at most 5, before the end."""
+    return lit_end <= n - COPYLENGTH and match_end <= n - LASTLITERALS
+
+
+def unknown_ends_ok(ends, comp_len: int, cap: int) -> bool:
+    """The hardened decoder's block-end rules (``reference.
+    _unknown_sequences``) on a row ``ends`` of ``records_to_state``'s
+    block ends, of a block of ``comp_len`` bytes under a ``cap``: the
+    last match's literals end at most 8 bytes before the compressed
+    block's end and 12 before the cap, the match itself 5 before the
+    cap, and its length's extension bytes lie before the last 6
+    compressed bytes (where that decoder stops reading them)."""
+    lit_in, lit_end, match_end, ext_end = (int(e) for e in ends)
+    return (lit_in <= comp_len - (2 + 1 + LASTLITERALS)
+            and lit_end <= cap - MFLIMIT
+            and match_end <= cap - LASTLITERALS
+            and ext_end <= comp_len - (LASTLITERALS + 1))
+
+
+def device_pass(comp, comp_len, out_len, C: int, D: int, pre=None,
+                pre_len=None):
+    """``decode_batch_vectorized``'s six outputs, then the block ends of
+    ``records_to_state`` [B, 4] (the rules' positions)."""
     P = 0 if pre is None else pre.shape[1]
     Dt = P + D
     if D % CH or P % CH or Dt > BIASD:
@@ -143,8 +185,10 @@ def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int,
     live_o = o[None, :] < P + out_len[:, None]
 
     mark, lit_len, mlen, pmiss = parse_tokens(comp, comp_len, C)
+    ends = torch.empty((comp.shape[0], 4), dtype=torch.int32,
+                       device=comp.device)
     t0m, cidx, stats = records_to_state(comp, mark, lit_len, mlen, comp_len,
-                                        out_len, pre_len, C, Dt, P)
+                                        out_len, pre_len, C, Dt, P, ends)
     total_out = stats[:, 1]
     strict = stats[:, 2] != 0
     consumed = stats[:, 3]
@@ -162,7 +206,7 @@ def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int,
     out, res_ok = resolve_wavefront(T0, P // CH)
     out = out[:, P:] * live_o[:, P:]
     ok = ~rk_miss & ~lit_miss & res_ok & ~pmiss
-    return out, total_out, ok, strict, consumed, needed
+    return out, total_out, ok, strict, consumed, needed, ends
 
 
 class VectorDecoder:
@@ -177,8 +221,8 @@ class VectorDecoder:
         self.host_decodes = 0
 
     def _pass(self, blocks, out_lens, dictionary=None):
-        """One device pass: (out [B, D] uint8, total, ok, strict, needed)
-        as numpy arrays."""
+        """One device pass: (out [B, D] uint8, total, ok, strict, needed,
+        block ends [B, 4]) as numpy arrays."""
         comp, comp_len, out_len, C, D = pack_blocks(blocks, out_lens)
         dev = batch_from_numpy(comp, comp_len, out_len, self.device)
         pre = pre_len = None
@@ -186,17 +230,20 @@ class VectorDecoder:
             pre, pre_len, _P = pack_windows(dictionary, len(blocks))
             pre = torch.from_numpy(pre).to(self.device).to(torch.int32)
             pre_len = torch.from_numpy(pre_len).to(self.device)
-        out, total, ok, strict, _consumed, needed = \
-            decode_batch_vectorized(*dev, C, D, pre, pre_len)
+        out, total, ok, strict, _consumed, needed, ends = \
+            device_pass(*dev, C, D, pre, pre_len)
         # fetch bytes, not words
         return (out.to(torch.uint8).cpu().numpy(), total.cpu().numpy(),
-                ok.cpu().numpy(), strict.cpu().numpy(), needed.cpu().numpy())
+                ok.cpu().numpy(), strict.cpu().numpy(), needed.cpu().numpy(),
+                ends.cpu().numpy())
 
     def decode_batch(self, blocks, out_lens, dictionary=None):
         """The decoded blocks of known lengths ``out_lens``; with
         ``dictionary`` (one window shared by the batch, or a list of one
         window a block) matches may reach back into the window.  Blocks
-        over 96 KB, compressed or decoded, go to ``_decode_big_many``."""
+        over 96 KB, compressed or decoded, go to ``_decode_big_many``
+        where their header walk (``bigblock.scan``) gives their length
+        and keeps the block-end rules, else to the host decoder."""
         blocks = [bytes(b) for b in blocks]
         out_lens = list(out_lens)
         if not blocks:
@@ -209,33 +256,43 @@ class VectorDecoder:
         bigs = set(big)
         small = [i for i in range(len(blocks)) if i not in bigs]
         results = [None] * len(blocks)
+
+        def host(i):
+            self.host_decodes += 1
+            return (reference.decompress_block_dict(
+                blocks[i], dictionary[i], out_lens[i]) if dictionary
+                else reference.decompress_block(blocks[i], out_lens[i]))
+
         if small:
-            out, total, ok, strict, needed = self._pass(
+            out, total, ok, strict, needed, ends = self._pass(
                 [blocks[i] for i in small], [out_lens[i] for i in small],
                 [dictionary[i] for i in small] if dictionary else None)
             # Accept device output only under full strict certification
-            # (the hardened-decoder invariants + exact length match),
-            # exactly the rule of decode_vector.py:769-774; anything
-            # weaker could accept a stream the reference rejects.
+            # (the hardened-decoder invariants + exact length match, the
+            # rule of decode_vector.py:769-774 there) and the block-end
+            # rules; anything weaker could accept a block the reference
+            # rejects.
             for j, i in enumerate(small):
                 n = out_lens[i]
-                if (not bool(ok[j]) or int(total[j]) != n
-                        or not bool(strict[j]) or int(needed[j]) != n):
-                    self.host_decodes += 1
-                    results[i] = (
-                        reference.decompress_block_dict(blocks[i],
-                                                        dictionary[i], n)
-                        if dictionary else
-                        reference.decompress_block(blocks[i], n))
-                else:
+                if (bool(ok[j]) and int(total[j]) == n and bool(strict[j])
+                        and int(needed[j]) == n
+                        and known_ends_ok(ends[j, 1], ends[j, 2], n)):
                     results[i] = out[j, :n].tobytes()
-        if big:
+                else:
+                    results[i] = host(i)
+        walked = []
+        for i in big:
+            s = scan(blocks[i])
+            if (s is not None and s[2] == out_lens[i]
+                    and (s[4] is None or known_ends_ok(*s[4], out_lens[i]))):
+                walked.append((i, s))
+            else:
+                results[i] = host(i)
+        if walked:
             self._decode_big_many(
-                big, blocks, out_lens, results,
-                lambda i: reference.decompress_block_dict(
-                    blocks[i], dictionary[i], out_lens[i]) if dictionary
-                else reference.decompress_block(blocks[i], out_lens[i]),
-                by_fragment=True, dictionary=dictionary)
+                [i for i, _ in walked], blocks, out_lens, results, host,
+                by_fragment=True, dictionary=dictionary,
+                scans=[s for _, s in walked])
         return results
 
     def _decode_big_many(self, idx, blocks, out_lens, results, host,
@@ -247,20 +304,19 @@ class VectorDecoder:
         its own window, the block's last 64 KB of output (the dictionary's
         tail, per block, before that).  A block the header walk refuses
         goes whole to ``host(i)``, the host decoder of its path, which
-        raises the reference's error.  So does a block with a fragment
-        the card cannot certify, unless ``by_fragment``: then (the
-        known-length paths) that fragment alone is re-decoded on the host
-        by ``reference.decompress_fragment``, as the JAX package's
-        ``native.decompress_fragment``, and the block goes to ``host(i)``
-        only where that refuses too.  Each host decode counts in
-        ``host_decodes``.  ``scans`` may carry each block's
-        ``bigblock.scan``, already walked."""
+        raises the reference's error and counts in ``host_decodes``.  So
+        does a block with a fragment the card cannot certify, unless
+        ``by_fragment``: then (the known-length paths) that fragment alone
+        is re-decoded on the host by ``reference.decompress_fragment``, as
+        the JAX package's ``native.decompress_fragment`` (counted), and
+        the block goes to ``host(i)`` only where that refuses too.
+        ``scans`` carries each block's ``bigblock.scan``, already walked
+        by the caller, who has checked its path's block-end rules on it:
+        fragments are not held to them."""
         frags, outs, heads = {}, {}, {}
         for k, i in enumerate(idx):
-            f = split_fragments(blocks[i], out_lens[i],
-                                scans[k] if scans else None)
+            f = split_fragments(blocks[i], out_lens[i], scans[k])
             if f is None:
-                self.host_decodes += 1
                 results[i] = host(i)
                 continue
             frags[i] = f
@@ -279,7 +335,7 @@ class VectorDecoder:
                 windows.append((heads[i] + bytes(outs[i]))[-WINDOW:]
                                if o0 < WINDOW
                                else bytes(outs[i][o0 - WINDOW:o0]))
-            out, total, ok, strict, needed = self._pass(
+            out, total, ok, strict, needed, _ends = self._pass(
                 fr, spans, windows if any(windows) else None)
             for j, i in enumerate(live):
                 n = spans[j]
@@ -287,7 +343,6 @@ class VectorDecoder:
                         and int(needed[j]) == n):
                     outs[i] += out[j, :n].tobytes()
                     continue
-                self.host_decodes += 1
                 piece = None
                 if by_fragment:
                     try:
@@ -299,6 +354,7 @@ class VectorDecoder:
                     results[i] = host(i)
                     del frags[i]
                 else:
+                    self.host_decodes += 1
                     outs[i] += piece
         for i in frags:
             results[i] = bytes(outs[i])
@@ -310,7 +366,8 @@ class VectorDecoder:
         the hardened decoder's invariants hold and the exact size the
         parse implies (``needed``, which does not depend on the output
         length) was decoded whole within its cap (decode_vector.py:
-        694-700 there).  A block over 96 KB, or one whose parse implies
+        694-700 there) and the hardened decoder's block-end rules hold
+        (``unknown_ends_ok``).  A block over 96 KB, or one whose parse implies
         more than 96 KB under a cap above that, is walked on the host
         twice: the hardened decoder's walk over its headers
         (``reference.unknown_output_length``, every block-end and cap
@@ -325,17 +382,24 @@ class VectorDecoder:
         blocks = [bytes(b) for b in blocks]
         caps = list(max_out_lens)
         results = [None] * len(blocks)
+
+        def host(i):
+            self.host_decodes += 1
+            return reference.decompress_block_unknown(blocks[i], caps[i])
+
         big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
         live = [i for i, b in enumerate(blocks)
                 if b and len(b) <= self.MAX_BLOCK]
         if live:
-            out, total, ok, strict, needed = self._pass(
+            out, total, ok, strict, needed, ends = self._pass(
                 [blocks[i] for i in live],
                 [min(caps[i], self.MAX_BLOCK) for i in live])
             for j, i in enumerate(live):
                 n = int(needed[j])
                 if (bool(ok[j]) and bool(strict[j]) and n == int(total[j])
-                        and n <= caps[i]):
+                        and n <= caps[i]
+                        and unknown_ends_ok(ends[j], len(blocks[i]),
+                                            caps[i])):
                     results[i] = out[j, :n].tobytes()
                 elif n > self.MAX_BLOCK and caps[i] > self.MAX_BLOCK:
                     big.append(i)
@@ -354,12 +418,9 @@ class VectorDecoder:
         if walked:
             self._decode_big_many(
                 [i for i, _ in walked], blocks, {i: s[2] for i, s in walked},
-                results, lambda i: reference.decompress_block_unknown(
-                    blocks[i], caps[i]), by_fragment=False,
+                results, host, by_fragment=False,
                 scans=[s for _, s in walked])
         for i, r in enumerate(results):
             if r is None:
-                self.host_decodes += 1
-                results[i] = reference.decompress_block_unknown(blocks[i],
-                                                                caps[i])
+                results[i] = host(i)
         return results

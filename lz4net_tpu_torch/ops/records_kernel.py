@@ -17,7 +17,15 @@ output start ``estart`` is <= o.  Outputs:
   is not a literal;
 * ``stats`` [B, 8]: (n_seqs, total_out, strict, consumed, needed, 0, 0,
   0) - the hardened decoder's certificate.  Columns 5-7 held the TPU
-  kernel's window-miss diagnostics; exact reads cannot miss.
+  kernel's window-miss diagnostics; exact reads cannot miss;
+* ``ends`` [B, 4], written where the caller passes it: the positions the
+  reference decoders' block-end rules bind on, at the block's last
+  sequence with a match (its token is the last but one): its literal end
+  in the compressed block, its literal end and its match end in the
+  output (from P), and the final token's offset where that match's
+  length takes extension bytes (else ``NO_END``); ``NO_END`` throughout
+  for a block of fewer than two tokens.  Exact wherever the certificate
+  holds (``ops/decode_vector.py`` applies the rules).
 
 ``mark`` must hold 0/1 values and ``estart`` must never decrease (as
 ``parse_tokens``' output gives).
@@ -33,6 +41,7 @@ TILE = 4096          # the kernel's scan tile; C must be a multiple
 EXPAND = 4096        # output bytes of an expansion tile
 M17 = (1 << 17) - 1
 VFLAG = 1 << 19
+NO_END = -(1 << 30)  # ends of a block without a match: below any bound
 
 launches = 0
 
@@ -64,14 +73,22 @@ def _aligned(t):
 
 
 def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
-                     pre_len, C: int, Dt: int, P: int = 0):
-    """Returns (t0m [B, Dt], cidx [B, Dt], stats [B, 8]), all int32."""
+                     pre_len, C: int, Dt: int, P: int = 0, ends=None):
+    """Returns (t0m [B, Dt], cidx [B, Dt], stats [B, 8]), all int32, and
+    writes the block-end positions into ``ends`` if given (a contiguous
+    [B, 4] int32 tensor on the inputs' device)."""
     global launches
     _check(comp, mark, ll_all, ml_all, comp_len, out_len, pre_len, C)
+    if ends is not None and (ends.dtype != torch.int32
+                             or ends.shape != (comp.shape[0], 4)
+                             or ends.device != comp.device
+                             or not ends.is_contiguous()):
+        raise ValueError("ends must be a contiguous [B, 4] int32 tensor "
+                         "on comp's device")
     if comp.device.type == "cpu":
         return records_to_state_reference(comp, mark, ll_all, ml_all,
                                           comp_len, out_len, pre_len, C,
-                                          Dt, P)
+                                          Dt, P, ends)
     if comp.device.type != "cuda":
         raise ValueError(f"unsupported device {comp.device}")
     ins = [_aligned(t) for t in (comp, mark, ll_all, ml_all, comp_len,
@@ -85,6 +102,7 @@ def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
     _build.launch("lz4t_records_to_state", comp.device,
                   *(t.data_ptr() for t in ins),
                   t0m.data_ptr(), cidx.data_ptr(), stats.data_ptr(),
+                  None if ends is None else ends.data_ptr(),
                   tok.data_ptr(), B, C, Dt, P)
     launches += 1
     return t0m, cidx, stats
@@ -92,7 +110,7 @@ def records_to_state(comp, mark, ll_all, ml_all, comp_len, out_len,
 
 def records_to_state_reference(comp, mark, ll_all, ml_all, comp_len,
                                out_len, pre_len, C: int, Dt: int,
-                               P: int = 0):
+                               P: int = 0, ends=None):
     """Plain PyTorch version of ``records_to_state`` (same outputs)."""
     i32 = torch.int32
     dev = comp.device
@@ -170,4 +188,18 @@ def records_to_state_reference(comp, mark, ll_all, ml_all, comp_len,
     stats[:, 2] = strict.to(i32)
     stats[:, 3] = consumed
     stats[:, 4] = needed
+    if ends is not None:
+        # the last token with a match (rank n_seqs - 1) and the final one
+        qm = torch.where(m1 & (rank == n_seqs[:, None] - 1), q, -1).amax(1)
+        qf = torch.where(m1 & (rank == n_seqs[:, None]), q, -1).amax(1)
+        at = qm.clamp(min=0).long()[:, None]
+        llq = torch.gather(ll, 1, at)[:, 0].clamp(max=M17)
+        hdrq = 1 + torch.where(llq >= 15, 1 + (llq - 15) // 255, 0)
+        mdst = torch.gather(estart, 1, at)[:, 0] + llq
+        ext = torch.gather(comp, 1, at)[:, 0] & 15 == 15
+        got = torch.stack([qm + hdrq + llq, mdst - P,
+                           torch.gather(estart, 1, qf.clamp(min=0).long()[
+                               :, None])[:, 0] - P,
+                           torch.where(ext, qf, NO_END)], 1)
+        ends.copy_(torch.where((n_seqs >= 2)[:, None], got, NO_END))
     return t0m.to(i32), cidx.to(i32), stats

@@ -1089,3 +1089,58 @@ def big_bad_blocks(block: bytes) -> list:
     giant = _lz4_sequences([(block[lit:lit + ll], 1, 120000)], b"")
     return [("final_run_cut", cut), ("empty_final_run", cut + b"\x00"),
             ("giant_match_at_end", cut + giant[:-1])]
+
+
+def block_end_rows(seed: int = 0) -> list:
+    """Small blocks at the edges of the reference decoders' block-end
+    rules, which bind on a block's last sequence with a match:
+    [(name, block, n)], n the length the block's own token walk decodes
+    to (what a known-length caller passes).  Each block is a 300-byte
+    literal run and a 30-byte match, then the last match and the final
+    literal run of the row:
+
+    * ``final_run_<k>``, k = 0..7: an 8-byte match, then k literals (k = 0
+      an empty final run): the known-length decoder wants k >= 5 (the
+      match ends 5 bytes before the end at most), the hardened one too
+      (its literals end 8 compressed bytes before the end at most);
+    * ``short_match_<k>``, k = 5..8: a 4-byte match, then k literals: its
+      literals end n - 4 - k, which the hardened decoder wants at most
+      12 bytes before its cap (k = 8 under a cap of n, k >= 7 under n + 1);
+    * ``ext_final_run_<k>``, k = 4..6: a 99-byte match (one length
+      extension byte, 0x50), then k literals: the hardened decoder stops
+      reading a match length 6 bytes before the block's end, so at k = 4
+      it reads the extension byte as the final token and decodes
+      another, shorter block (which it accepts);
+    * ``literals_only_<n>``: one literal run of 3 and of 13 bytes.
+    """
+    rng = random.Random(seed)
+    text = _text(rng, 600)
+    head = [(text[:300], 50, 30)]
+    rows = []
+    for k in range(8):
+        rows.append((f"final_run_{k}", _lz4_sequences(
+            head + [(text[300:310], 40, 8)], text[400:400 + k])))
+    for k in range(5, 9):
+        rows.append((f"short_match_{k}", _lz4_sequences(
+            head + [(text[300:310], 40, 4)], text[400:400 + k])))
+    for k in range(4, 7):
+        rows.append((f"ext_final_run_{k}", _lz4_sequences(
+            head + [(text[300:310], 1, 99)], text[400:400 + k])))
+    for n in (3, 13):
+        rows.append((f"literals_only_{n}", _lz4_sequences([], text[:n])))
+    return [(name, blk, len(_decoded(blk))) for name, blk in rows]
+
+
+def short_final_run(block: bytes, k: int = 3) -> tuple:
+    """``block``, a well-formed LZ4 block, with its final literal run cut
+    to its first ``k`` < 5 literals, so that its last match ends fewer than
+    5 bytes before the end, which every reference decoder refuses:
+    (bytes, the length its token walk decodes to)."""
+    from collections import deque
+
+    from ..models.reference import _unknown_sequences
+
+    (lit, ll, _, _), = deque(_unknown_sequences(block, 1 << 31), maxlen=1)
+    head = block[:lit - 1 - (0 if ll < 15 else 1 + (ll - 15) // 255)]
+    cut = _lz4_sequences([], block[lit:lit + k])
+    return head + cut, len(_decoded(block)) - ll + k

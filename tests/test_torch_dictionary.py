@@ -283,7 +283,7 @@ def test_wrap_envelopes_match_jax():
 def test_facade_strict_modes_and_decode_match_jax():
     text = corpus.silesia_like(12000, seed=13)
     data, window = text[6000:], text[:6000]
-    assert codec.codec_name() == "cuda/cuda/cuda"
+    assert codec.codec_name(device="cpu") == "cuda/cuda/cudaHC"
     for level in (9, 4):
         assert codec.encode_hc(data, level=level, device="cpu") \
             == jlz4.encode_hc(data, level=level) \

@@ -8,6 +8,7 @@ on a machine with one (no JAX needed) run them with
 """
 
 import ast
+import io
 import pathlib
 
 import numpy as np
@@ -15,7 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from lz4net_tpu_torch import codec  # noqa: E402
+from lz4net_tpu_torch import __main__ as cli  # noqa: E402
+from lz4net_tpu_torch import codec, registry, stream  # noqa: E402
 from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
@@ -128,6 +130,21 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         cuda_engine.compress_blocks_fast_dict([b"abc" * 10], b"abc")
     with pytest.raises(RuntimeError, match="cuda"):
         cuda_engine.decompress_blocks_dict([b"\x10x"], [1], b"ab")
+    # the stream, the engine selection and the command line
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.initialize()
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.codec_name()
+    with pytest.raises(RuntimeError, match="cuda"):
+        stream.compress_stream(b"abc" * 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        stream.decompress_stream(stream.compress_stream(b"abc" * 10,
+                                                        device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        stream.LZ4Stream(io.BytesIO(), stream.LZ4StreamMode.COMPRESS).write(
+            b"abc" * 10 ** 6)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["info"])
 
 
 def test_wrappers_refuse_other_devices():
@@ -262,10 +279,13 @@ def test_kernels_match_plain_versions_on_the_card(cuda, blocks):
     parsed = parse_kernel.parse_tokens(comp, comp_len, C)
     _equal(parsed, parse_kernel.parse_tokens_reference(comp, comp_len, C))
     mark, ll, ml, _ = parsed
+    ends, want_ends = (torch.full((len(plain), 4), -7, dtype=torch.int32,
+                                  device=cuda) for _ in range(2))
     rec = records_kernel.records_to_state(comp, mark, ll, ml, comp_len,
-                                          out_len, pre, C, D)
+                                          out_len, pre, C, D, 0, ends)
     _equal(rec, records_kernel.records_to_state_reference(
-        comp, mark, ll, ml, comp_len, out_len, pre, C, D))
+        comp, mark, ll, ml, comp_len, out_len, pre, C, D, 0, want_ends))
+    _equal([ends], [want_ends])
     cidx = rec[1]
     idx = torch.cummax(torch.where(cidx >= 0, cidx.clamp(0, C - 1), 0),
                        dim=1).values
@@ -295,9 +315,8 @@ def test_kernels_match_plain_versions_on_junk(cuda):
                                            out_len, pre, C, D),
            records_kernel.records_to_state_reference(
                comp, mark, ll, ml, comp_len, out_len, pre, C, D))
-    got = dv.decode_batch_vectorized(comp, comp_len, out_len, C, D)
-    want = dv.decode_batch_vectorized(comp.cpu(), comp_len.cpu(),
-                                      out_len.cpu(), C, D)
+    got = dv.device_pass(comp, comp_len, out_len, C, D)
+    want = dv.device_pass(comp.cpu(), comp_len.cpu(), out_len.cpu(), C, D)
     _equal(got, want)
     # marks outside {0, 1} give unspecified outputs but no memory fault
     records_kernel.records_to_state(comp, 3 * mark - 1, ll, ml, comp_len,
@@ -635,3 +654,41 @@ def test_encode_batch_chain_on_the_card(cuda, blocks):
         _equal(got, ev.encode_batch_vectorized(x, dl, D, O, S_cap, rcap,
                                                level))
         assert bool(got[2].all())
+
+
+@pytest.mark.gpu
+def test_stream_and_block_end_rules_on_the_card(cuda, blocks):
+    """An LZ4Stream round trip through the registry's engines on the card
+    (frames equal to the CPU path's, no host decode), and the block-end
+    rules: ``corpus.block_end_rows`` and ``big_bad_blocks`` give the
+    reference decoders' bytes or errors on each path."""
+    plain, _ = blocks
+    data = b"".join(plain)
+    dec = cuda_engine.decoder(cuda)
+    hosted = dec.host_decodes
+    framed = stream.compress_stream(data, block_size=1 << 16)
+    assert framed == stream.compress_stream(data, block_size=1 << 16,
+                                            device="cpu")
+    assert stream.decompress_stream(framed) == data
+    assert dec.host_decodes == hosted
+
+    def outcome(call):
+        try:
+            return call()
+        except reference.CorruptedBlockError as exc:
+            return str(exc)
+
+    small = reference.compress_block(corpus.silesia_like(30000, seed=3))
+    rows = corpus.block_end_rows() + [
+        (name, blk, 29990) for name, blk in corpus.big_bad_blocks(small)]
+    window = corpus.silesia_like(5000, seed=21)
+    for name, blk, n in rows:
+        assert outcome(lambda: dec.decode_batch([blk], [n])[0]) == \
+            outcome(lambda: reference.decompress_block(blk, n)), name
+        assert outcome(lambda: dec.decode_batch(
+            [blk], [n], dictionary=window)[0]) == outcome(
+            lambda: reference.decompress_block_dict(blk, window, n)), name
+        for cap in (n, n + 1, 96 * 1024, 2 << 20):
+            assert outcome(lambda: dec.decode_batch_unknown(
+                [blk], [cap])[0]) == outcome(
+                lambda: reference.decompress_block_unknown(blk, cap)), name
