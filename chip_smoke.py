@@ -232,7 +232,23 @@
    codec_name() must still be "cuda/cuda/cudaHC", and a read-all of 4 MB
    of 64 KB stream frames must decode on the card (host_decodes=0, each
    decode kernel launched once);
-28. prints one JSON line with the kernels (each with its launches by
+28. the data-parallel pipeline (lz4net_tpu_torch.parallel) in a world
+   of one on NCCL (parallel.mesh.make_mesh()): the dry run of
+   __graft_entry__.py at the main cell's size, make_distributed_encode on
+   the 256 blocks (payloads equal to the reference compressor's, the
+   all-reduced total their sum, one encode_sequencer launch and no other),
+   then distributed_decode of those payloads (byte-exact, one
+   decode_sequencer launch and no other; the step's total 16 MB); the
+   batch less its last 3 blocks packed to a multiple of 8 (3 pad rows,
+   dropped: the same blocks and total); a truncated and an offset-0 block
+   raise CorruptedBlockError, a block with two trailing bytes gives its
+   source; distributed_decode_dict on the dictionary workload's 1024
+   records (fast-encoded on the card): byte-exact, 1024 certified, no host
+   re-decode, each decode kernel launched once; ms per call (first and
+   late), each step's device time, distributed_decode in turns with
+   SequencerDecoder.decode_batch and codec.decode_batch, and the
+   collectives' share (torch.profiler); the group is destroyed at the end;
+29. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -352,6 +368,18 @@ def first_call(torch, rows, call, names=None):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
     return got, ms, read_counts(rows, names)
+
+
+def only_path(torch, rows, by_path, path, call, names):
+    """Counts at 0, one ``call()``, the launches read into
+    ``by_path[path]``: the path must launch each kernel of ``names`` once
+    and no other.  Returns (its result, ms)."""
+    got, first_ms, launches = first_call(torch, rows, call)
+    by_path[path] = launches
+    if launches != {**{k: 0 for k in launches}, **{k: 1 for k in names}}:
+        fail(f"{path}: launches {launches}, one each of {list(names)} and "
+             f"nothing else expected")
+    return got, first_ms
 
 
 def where_the_time_goes(torch, call, name, n_bytes, unit, card):
@@ -2448,14 +2476,7 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     by_path = {}
 
     def run_path(path, call, kname):
-        """Counts at 0, one call, the launches read; the path must launch
-        ``kname`` once and no other kernel."""
-        got, first_ms, launches = first_call(torch, rows, call)
-        by_path[path] = launches
-        if launches != {**{k: 0 for k in launches}, kname: 1}:
-            fail(f"{path}: launches {launches}, the path makes one "
-                 f"{kname} and nothing else")
-        return got, first_ms
+        return only_path(torch, rows, by_path, path, call, [kname])
 
     # ---- slice phase: strict encode -------------------------------------
     def strict_call():
@@ -2528,6 +2549,210 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
           f"{n_data / dev_ms / 1e6:.3f} GB/s; {card}")
     where_the_time_goes(torch, seq_call, "SequencerDecoder.decode_batch",
                         n_data, "decoded", card)
+    return by_path
+
+
+def collective_share(torch, call, card):
+    """torch.profiler over one ``call()``: the device time of NCCL's
+    kernels beside all device time, and the host time inside the c10d
+    collectives beside the call's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    nccl = sum(e.self_device_time_total for e in dev
+               if "nccl" in e.key.lower()) / 1e3
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.key.startswith("c10d::")]
+    host_ms = sum(e.cpu_time_total for e in host) / 1e3
+    print(f"distributed_decode profile ({call_ms:.2f} ms call): NCCL kernels "
+          + (f"{nccl:.4f} ms of {busy:.4f} ms device time (share "
+             f"{nccl / busy:.3f})" if busy else "device time not measured "
+             "(the trace holds no device events)")
+          + f"; host in c10d collectives {host_ms:.3f} ms (share "
+          f"{host_ms / call_ms:.3f}: "
+          + ", ".join(f"{e.key} x{e.count}" for e in host) + f"); {card}")
+
+
+def parallel_phase(torch, card, rows, data, blocks, packed):
+    """Step 28: the data-parallel pipeline (``lz4net_tpu_torch.parallel``)
+    in a world of one on NCCL, the dry run of ``__graft_entry__.py``
+    (sharded strict encode, then sharded decode, with all-reduced totals)
+    at the main cell's size, then dictionary decode with the window
+    broadcast.  Returns the launches by path."""
+    import torch.distributed as dist
+
+    from lz4net_tpu_torch import codec
+    from lz4net_tpu_torch.constants import maximum_output_length
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.ops import decode_sequencer as ds
+    from lz4net_tpu_torch.ops import decode_vector as dv
+    from lz4net_tpu_torch.parallel import mesh as pmesh
+    from lz4net_tpu_torch.parallel import pipeline as pl
+    from lz4net_tpu_torch.utils import corpus
+
+    t = time.perf_counter()
+    mesh = pmesh.make_mesh()
+    start_ms = (time.perf_counter() - t) * 1e3
+    if (dist.get_backend(), mesh.size(), mesh.device_type) \
+            != ("nccl", 1, "cuda"):
+        fail(f"make_mesh(): {dist.get_backend()}, {mesh}")
+    by_path = {}
+
+    def run_path(path, call, names):
+        return only_path(torch, rows, by_path, path, call, names)
+
+    try:
+        lens = [len(b) for b in blocks]
+        n_data = sum(lens)
+        B = len(blocks)
+        shard, put = pmesh.block_sharding(mesh), pmesh.replicated(mesh)
+
+        # ---- sharded strict encode --------------------------------------
+        caps = [maximum_output_length(n) for n in lens]
+        src, elens, S, O, _ = pl.pack_blocks(blocks, caps, mesh.size())
+        enc = pl.make_distributed_encode(mesh, src.shape[0], S, O)
+        src_d, elens_d = shard(src), shard(elens)
+
+        def enc_call():
+            out, written, total = enc(src_d, elens_d)
+            out, written = (pl.gather_blocks(mesh, out),
+                            pl.gather_blocks(mesh, written))
+            return [out[i, :w].tobytes() for i, w in enumerate(written)], \
+                int(total)
+
+        (payloads, e_total), e_first = run_path("dist_encode", enc_call,
+                                                ["encode_sequencer"])
+        if payloads != packed or e_total != sum(map(len, packed)):
+            fail(f"sharded strict encode: payloads equal the reference "
+                 f"compressor's {payloads == packed}, total {e_total} for "
+                 f"{sum(map(len, packed))} bytes")
+        e_late = host_walls(torch, enc_call)
+
+        # ---- sharded decode of those payloads ---------------------------
+        def dec_call():
+            return pl.distributed_decode(payloads, lens, mesh)
+
+        got, d_first = run_path("dist_decode", dec_call,
+                                ["decode_sequencer"])
+        if got != blocks:
+            fail("distributed_decode: blocks differ from their source")
+        comp, plens, C, D, _ = pl.pack_blocks(payloads, lens, mesh.size())
+        step = pl.make_distributed_decode(mesh, B, C, D)
+        comp_d, plens_d = shard(comp), shard(plens)
+        if int(step(comp_d, plens_d)[2]) != n_data:
+            fail("distributed decode: the all-reduced total is not the "
+                 "decoded size")
+        # the batch less its last 3 blocks, packed to a multiple of 8: 3
+        # pad rows, dropped on unpack, adding nothing to the total
+        comp8, lens8, C8, D8, n8 = pl.pack_blocks(payloads[:-3], lens[:-3],
+                                                  8)
+        out8, st8, tot8 = pl.make_distributed_decode(
+            mesh, comp8.shape[0], C8, D8)(shard(comp8), shard(lens8))
+        got8 = pl.unpack_blocks(pl.gather_blocks(mesh, out8),
+                                pl.gather_blocks(mesh, st8), lens8, n8,
+                                comp8)
+        if comp8.shape[0] - n8 != 3 or got8 != blocks[:-3] \
+                or int(tot8) != sum(lens[:-3]):
+            fail("distributed decode with 3 pad rows: the blocks or the "
+                 "total differ")
+        off0 = bytearray(reference.compress_block(b"abcd" * 50))
+        off0[5:7] = b"\x00\x00"            # the first match's offset
+        for what, blk, n in (("truncated", payloads[0][:len(payloads[0])
+                                                         // 2], lens[0]),
+                             ("offset-0", bytes(off0), 200)):
+            try:
+                pl.distributed_decode([blk], [n], mesh)
+            except reference.CorruptedBlockError:
+                continue
+            fail(f"distributed_decode accepted a {what} block")
+        if pl.distributed_decode([payloads[0] + b"\x00\x00"], [lens[0]],
+                                 mesh) != [blocks[0]]:
+            fail("distributed_decode: a block with two trailing bytes did "
+                 "not give its source")
+
+        # ---- dictionary decode, the window broadcast --------------------
+        records = corpus.split_blocks(data, RECORD)
+        dictionary = b"".join(records[0::256])
+        batch = records[1::4]
+        dlens = [len(r) for r in batch]
+        dpay = cuda_engine.compress_blocks_fast_dict(batch, dictionary,
+                                                     device="cuda")
+        before = pl.host_decodes
+
+        def dict_call():
+            return pl.distributed_decode_dict(dpay, dlens, dictionary, mesh)
+
+        got, dd_first = run_path("dist_decode_dict", dict_call,
+                                 DECODE_KERNELS)
+        if got != batch or pl.host_decodes != before:
+            fail(f"distributed_decode_dict: records equal {got == batch}, "
+                 f"{pl.host_decodes - before} host re-decodes")
+        dcomp, dcl, dol, dC, dD = dv.pack_blocks(dpay, dlens)
+        pre, pre_len, P = dv.pack_windows(dictionary, 1)
+        dstep = pl.make_distributed_vector_decode_dict(mesh, len(dpay), dC,
+                                                       dD, P)
+        dargs = (shard(dcomp).to(torch.int32), shard(dcl), shard(dol),
+                 put(pre[0]).to(torch.int32), put(pre_len[0]))
+        certified = int(dstep(*dargs)[3])
+        if certified != len(batch):
+            fail(f"distributed_decode_dict: {certified} of {len(batch)} "
+                 f"records certified")
+        dd_late = host_walls(torch, dict_call)
+        dd_dev = time_ms(torch, lambda: dstep(*dargs))
+
+        # ---- times --------------------------------------------------------
+        d_dev = time_ms(torch, lambda: step(comp_d, plens_d))
+        k_dev = time_ms(torch, lambda: ds.decode_sequencer(
+            comp_d, plens_d[:, 0], plens_d[:, 1], D))
+        e_dev = time_ms(torch, lambda: enc(src_d, elens_d))
+        dist_w, seq_w, vec_w = [], [], []
+        for _ in range(REPS):          # in turns
+            dist_w += host_walls(torch, dec_call, 1)
+            seq_w += host_walls(torch, lambda: ds.SequencerDecoder(
+                "cuda").decode_batch(payloads, lens), 1)
+            vec_w += host_walls(torch, lambda: codec.decode_batch(
+                payloads, lens, device="cuda"), 1)
+        med = statistics.median
+        print(f"parallel (NCCL, world 1, make_mesh {start_ms:.0f} ms): "
+              f"sharded strict encode of {B} blocks equal to the reference "
+              f"compressor's, total {e_total} bytes; first call "
+              f"{e_first:.2f} ms, later " + " ".join(f"{w:.2f}" for w in
+                                                      e_late)
+              + f"; step (encode_sequencer and the all-reduce) {e_dev:.3f} "
+              f"ms; {card}")
+        print(f"parallel: distributed_decode of {B} blocks byte-exact, total "
+              f"{n_data} bytes, 3 pad rows dropped, truncated and offset-0 "
+              f"blocks raise, two trailing bytes accepted; first call "
+              f"{d_first:.2f} ms; in turns (ms, host clock): "
+              f"distributed_decode " + " ".join(f"{w:.2f}" for w in dist_w)
+              + f" (median {med(dist_w):.2f}, {n_data / med(dist_w) / 1e6:.4f}"
+              f" GB/s), SequencerDecoder.decode_batch "
+              + " ".join(f"{w:.2f}" for w in seq_w)
+              + f" (median {med(seq_w):.2f}), codec.decode_batch "
+              + " ".join(f"{w:.2f}" for w in vec_w)
+              + f" (median {med(vec_w):.2f}); step (decode_sequencer and "
+              f"the all-reduce) {d_dev:.3f} ms, the kernel alone "
+              f"{k_dev:.3f} ms; {card}")
+        print(f"parallel: distributed_decode_dict of {len(batch)} records "
+              f"byte-exact, {certified} certified, host re-decodes 0; first "
+              f"call {dd_first:.2f} ms, later "
+              + " ".join(f"{w:.2f}" for w in dd_late)
+              + f"; step (device pass, certificate, all-reduce) "
+              f"{dd_dev:.3f} ms; {card}")
+        collective_share(torch, dec_call, card)
+    finally:
+        dist.destroy_process_group()
     return by_path
 
 
@@ -2872,7 +3097,10 @@ def smoke(select_cache) -> int:
     stream_launches = stream_phases(torch, card, rows, data, blocks, packed)
     tools_phases(torch, card, data, name)
     select_launches = select_phase(torch, card, rows, data)
+    parallel_launches = parallel_phase(torch, card, rows, data, blocks,
+                                       packed)
     paths = [("stream_read_after_select", select_launches),
+             *parallel_launches.items(),
              ("decode", launches), ("encode", enc_launches),
              *strict_launches.items(), *hc_launches.items(),
              *chain_launches.items(), *dict_launches.items(),

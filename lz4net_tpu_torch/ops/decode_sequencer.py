@@ -199,3 +199,17 @@ class SequencerDecoder:
                     f"wrote {int(status[i, 1])}/{n}")
         out = out.cpu().numpy()
         return [out[i, :n].tobytes() for i, n in enumerate(out_lens)]
+
+
+_DECODERS: dict[torch.device, SequencerDecoder] = {}
+
+
+def decompress_block(src: bytes, output_length: int, device="cuda") -> bytes:
+    """One block through the sequencer decoder (``decode_pallas.
+    decompress_block``, :344-349), which raises ``CorruptedBlockError``
+    unless its status is ``(len(src), output_length)``; one decoder is
+    kept a device."""
+    device = resolve_device(device)     # raises for CUDA without a card
+    if device not in _DECODERS:
+        _DECODERS[device] = SequencerDecoder(device)
+    return _DECODERS[device].decode_batch([bytes(src)], [output_length])[0]

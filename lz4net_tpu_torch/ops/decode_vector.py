@@ -151,8 +151,20 @@ def known_ends_ok(lit_end: int, match_end: int, n: int) -> bool:
     """The known-length decoder's block-end rules
     (``reference.decompress_block``, and ``decompress_block_dict`` past
     its window) on the last match of a block of ``n`` decoded bytes: its
-    literals end at most 8 bytes, and it at most 5, before the end."""
-    return lit_end <= n - COPYLENGTH and match_end <= n - LASTLITERALS
+    literals end at most 8 bytes, and it at most 5, before the end
+    (element-wise on tensors)."""
+    return (lit_end <= n - COPYLENGTH) & (match_end <= n - LASTLITERALS)
+
+
+def known_certified(ok, total, strict, needed, ends, out_len):
+    """The known-length acceptance rule, element-wise over a device
+    pass's outputs (tensors or arrays): the hardened decoder's
+    invariants (``ok``, ``strict``), exactly ``out_len`` bytes decoded
+    and implied by the parse (the rule of decode_vector.py:769-774
+    there), and the block-end rules on ``ends``; anything weaker could
+    accept a block the reference decoder rejects."""
+    return (ok & strict & (needed == total) & (total == out_len)
+            & known_ends_ok(ends[:, 1], ends[:, 2], out_len))
 
 
 def unknown_ends_ok(ends, comp_len: int, cap: int) -> bool:
@@ -264,20 +276,14 @@ class VectorDecoder:
                 else reference.decompress_block(blocks[i], out_lens[i]))
 
         if small:
+            lens = np.array([out_lens[i] for i in small], np.int64)
             out, total, ok, strict, needed, ends = self._pass(
-                [blocks[i] for i in small], [out_lens[i] for i in small],
+                [blocks[i] for i in small], lens.tolist(),
                 [dictionary[i] for i in small] if dictionary else None)
-            # Accept device output only under full strict certification
-            # (the hardened-decoder invariants + exact length match, the
-            # rule of decode_vector.py:769-774 there) and the block-end
-            # rules; anything weaker could accept a block the reference
-            # rejects.
+            accepted = known_certified(ok, total, strict, needed, ends, lens)
             for j, i in enumerate(small):
-                n = out_lens[i]
-                if (bool(ok[j]) and int(total[j]) == n and bool(strict[j])
-                        and int(needed[j]) == n
-                        and known_ends_ok(ends[j, 1], ends[j, 2], n)):
-                    results[i] = out[j, :n].tobytes()
+                if accepted[j]:
+                    results[i] = out[j, :lens[j]].tobytes()
                 else:
                     results[i] = host(i)
         walked = []

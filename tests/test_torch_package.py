@@ -60,6 +60,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "lz4net_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 17
+    assert {ROOT / "lz4net_tpu_torch" / "parallel" / f"{n}.py" for n in (
+        "__init__", "distributed", "mesh", "pipeline")} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -692,3 +694,45 @@ def test_stream_and_block_end_rules_on_the_card(cuda, blocks):
             assert outcome(lambda: dec.decode_batch_unknown(
                 [blk], [cap])[0]) == outcome(
                 lambda: reference.decompress_block_unknown(blk, cap)), name
+
+
+@pytest.mark.gpu
+def test_parallel_pipeline_on_the_card(cuda, blocks):
+    """The pipeline in a world of one on NCCL: sharded strict encode and
+    sequencer decode give the plain versions' bytes, the dictionary form
+    certifies every block, and a mesh on the CPU over that group raises
+    (no move to gloo)."""
+    import torch.distributed as dist
+    from lz4net_tpu_torch import maximum_output_length
+    from lz4net_tpu_torch.parallel import mesh as pmesh
+    from lz4net_tpu_torch.parallel import pipeline
+
+    plain, packed = blocks
+    lens = [len(b) for b in plain]
+    assert not dist.is_initialized()
+    mesh = pmesh.make_mesh()
+    try:
+        assert (dist.get_backend(), mesh.device_type) == ("nccl", "cuda")
+        with pytest.raises(ValueError, match="nccl"):
+            pmesh.make_mesh(device="cpu")
+        shard = pmesh.block_sharding(mesh)
+        caps = [maximum_output_length(len(b)) for b in plain]
+        src, elens, S, O, _ = pipeline.pack_blocks(plain, caps)
+        out, written, total = pipeline.make_distributed_encode(
+            mesh, len(plain), S, O)(shard(src), shard(elens))
+        assert [out[i, :w].cpu().numpy().tobytes()
+                for i, w in enumerate(written.tolist())] == packed
+        assert int(total) == sum(map(len, packed))
+        launched = ds.launches
+        assert pipeline.distributed_decode(packed, lens, mesh) == plain
+        assert ds.launches == launched + 1
+        dictionary = plain[0][:20000]
+        dpay = [reference.compress_block_dict(dictionary, b[:3000])
+                for b in plain[1:]]
+        hosted = pipeline.host_decodes
+        assert pipeline.distributed_decode_dict(
+            dpay, [3000] * len(dpay), dictionary, mesh) == \
+            [b[:3000] for b in plain[1:]]
+        assert pipeline.host_decodes == hosted
+    finally:
+        dist.destroy_process_group()
