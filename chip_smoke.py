@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the fifteen CUDA kernels from lz4net_tpu_torch/csrc with nvcc,
+2. builds the fifteen CUDA kernels from lz4net_tpu_torch/csrc with nvcc
+   and the native host engine from lz4net_tpu_torch/native with g++,
    then selects the engines (lz4net_tpu_torch.registry, with its cache
    pointed at an empty temporary directory; the AutoTest runs here, before
    any counted call);
@@ -98,8 +99,8 @@
    level-9 total to be at most the fast mode's; encodes one block
    through codec.encode_hc(mode="fast"); prints ms per batch (first and
    late calls), GB/s of input, the device pass alone, the compressed
-   size beside fast mode's and, for the first 8 blocks, beside the
-   reference HC compressor's (models.reference.compress_block_hc);
+   size beside fast mode's and the reference HC parse's on all 256
+   blocks (models.native.compress_blocks at 256 attempts);
 12. the chain record path's kernels at the fast path's shapes:
    mark_chain on the parse chain of the 256 blocks' match state and on
    corpus.chain_edge_rows (step-1 rows, jumps on and one short of the
@@ -146,8 +147,8 @@
    later calls), GB/s of records, the device pass beside that of the
    same records without a window (the window's share), the peak device
    memory and the compressed size beside compress_blocks_fast's without
-   the dictionary and, on 8 records, the reference dictionary
-   compressor's;
+   the dictionary and the reference dictionary compressor's
+   (models.native.compress_block_dict) on all 1024 records;
 17. decodes the fast payloads through
    lz4net_tpu_torch.models.cuda.decompress_blocks_dict: byte-exact, no
    host re-decode, each decode kernel launched once; 16 payloads decoded
@@ -220,7 +221,8 @@
    host re-decode, the decode kernels launched as those calls imply (a
    pass a call, a pass a fragment wave for 1 MB chunks); MB/s written and
    read (host clock) and the device's idle share of a read-all
-   (torch.profiler); 1 MB through an HC stream at 64 KB (frames equal to
+   (torch.profiler); the 16 MB through an HC stream at 64 KB (frames equal
+   to native.compress_block_hc's, the first 1 MB's to the Python
    reference.compress_block_hc's); an interactive read over a local
    socket pair returning each chunk as it arrives;
 26. the tools as subprocesses: python -m lz4net_tpu_torch compress and
@@ -248,7 +250,19 @@
    late), each step's device time, distributed_decode in turns with
    SequencerDecoder.decode_batch and codec.decode_batch, and the
    collectives' share (torch.profiler); the group is destroyed at the end;
-29. prints one JSON line with the kernels (each with its launches by
+29. the native host engine (lz4net_tpu_torch.models.native): registered
+   on the card (available_services) while every role stays cuda, its
+   AutoTest, its strict bytes equal to encode_sequencer's payloads on the
+   256 blocks, its HC level 9, dictionary and HC dictionary bytes equal
+   to the Python parses' (models.reference) on 8 blocks and 8 records,
+   bigblock.scan equal to bigblock.scan_reference and
+   native.unknown_output_length to the Python walk on the 16 blocks of
+   1 MB and the first one's corpus.big_bad_blocks; prints the host
+   library's build seconds, each walk's ms a 1 MB block beside the
+   Python walk's, and, from steps 21 and 25, big decode's and big
+   unknown decode's late ms and idle share, the 1 MB stream read rate
+   and the HC stream's write rate;
+30. prints one JSON line with the kernels (each with its launches by
    path, and the other shapes it was timed at under "variants"), then,
    last, {"ok": true, "device": {...}}.
 
@@ -271,6 +285,7 @@ BLOCK = 64 * 1024
 SEED = 0
 P64 = 65536                    # the prefix of a full 64 KB window
 REPS = 5
+REPORT = {}                    # the host engine's numbers for step 29
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # The integer work of these kernels has no published peak in NVIDIA's
 # data sheet; the 67 TFLOP/s of float32 outside the tensor cores (the
@@ -386,7 +401,9 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
     """The device's busy share and time by kernel from torch.profiler over
     one ``call()``, the host's time by function from cProfile over
     another, then five more calls timed on the host clock (the steady
-    state); ``n_bytes`` per call gives the rate in GB/s ``unit``."""
+    state); ``n_bytes`` per call gives the rate in GB/s ``unit``.
+    Returns (the idle share, None where the trace lost the port's
+    kernels; the late calls' median ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -402,7 +419,9 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
            if e.device_type == DeviceType.CUDA
            and not e.key.startswith("Activity Buffer")]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    idle = None
     if any(e.key.startswith("lz4t::") for e in dev):
+        idle = 1 - busy_ms / prof_ms
         print(f"{name} profile: device busy {busy_ms:.3f} ms of a "
               f"{prof_ms:.2f} ms profiled call, idle share "
               f"{1 - busy_ms / prof_ms:.3f}; {card}")
@@ -435,6 +454,7 @@ def where_the_time_goes(torch, call, name, n_bytes, unit, card):
           + " ".join(f"{w:.2f}" for w in late)
           + f"; median {late_ms:.2f} ms, "
           f"{n_bytes / late_ms / 1e6:.4f} GB/s {unit}; {card}")
+    return idle, late_ms
 
 
 def encode_phases(torch, card, kernel_row, rows, blocks, packed):
@@ -650,7 +670,7 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
 
     from lz4net_tpu_torch import codec
     from lz4net_tpu_torch.models import cuda as cuda_engine
-    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.models import native, reference
     from lz4net_tpu_torch.ops import encode_vector as ev
     from lz4net_tpu_torch.ops import (emit_kernel, hash_kernel, mlen_kernel,
                                       seq_kernel)
@@ -786,8 +806,13 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
     enc = cuda_engine.encoder("cuda")
     by_path = {}
     sizes = {}
-    # the reference HC parse is scalar Python: the first 8 blocks only
-    ref8 = sum(len(reference.compress_block_hc(b)) for b in blocks[:8])
+    # the reference HC parse on every block (the native host engine,
+    # which step 29 holds against the Python parse)
+    hc_lens = [len(b) for b in blocks]
+    ref_hc = native.compress_blocks(
+        b"".join(blocks), np.cumsum([0] + hc_lens[:-1]), hc_lens,
+        hc_attempts=256)[1]
+    ref_total = int(ref_hc.sum())
     for path, level, tiers, want in HC_PATHS:
         def call():
             if tiers is None:
@@ -815,15 +840,15 @@ def hc_phases(torch, card, kernel_row, rows, blocks, fast_total):
             fail(f"{path}: the first 8 payloads differ from the CPU path's")
         total = sum(map(len, got))
         sizes[path] = total
-        got8 = sum(map(len, got[:8]))
         print(f"{path} slice (level {level}, tiers {tiers or 'by level'}): "
               f"{B} blocks, host_encodes=0, launches {launches}, every "
               f"payload decodes on the host and the card, first 8 equal "
               f"the CPU path's, first call {first_ms:.1f} ms; {total} "
               f"compressed bytes ({total / n_data:.4f} of input) against "
-              f"{fast_total} ({fast_total / n_data:.4f}) in fast mode; "
-              f"first 8 blocks {got8} bytes against {ref8} from the "
-              f"reference HC compressor ({got8 / ref8:.4f}); {card}")
+              f"{fast_total} ({fast_total / n_data:.4f}) in fast mode and "
+              f"{ref_total} ({ref_total / n_data:.4f}) from the reference "
+              f"HC parse (level 9, native host engine) on all {B} blocks "
+              f"({total / ref_total:.4f} of it); {card}")
 
         walls = host_walls(torch, call, REPS - 1)
         wall = statistics.median(walls)
@@ -1142,7 +1167,7 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
 
     from lz4net_tpu_torch import codec
     from lz4net_tpu_torch.models import cuda as cuda_engine
-    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.models import native, reference
     from lz4net_tpu_torch.ops import decode_vector as dv
     from lz4net_tpu_torch.ops import encode_vector as ev
     from lz4net_tpu_torch.ops import (chain_kernel, emit_kernel,
@@ -1252,12 +1277,13 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
     # ---- slice phases: dictionary fast and fast-HC encode ---------------
     enc = cuda_engine.encoder("cuda")
     by_path, sizes, payloads = {}, {}, {}
-    # the same records without a dictionary, on the card; the reference
-    # dictionary compressor is scalar Python: 8 records
+    # the same records without a dictionary, on the card, and the
+    # reference dictionary compressor on every record (the native host
+    # engine, which step 29 holds against the Python parse)
     plain_total = sum(map(len, cuda_engine.compress_blocks_fast(
         batch, device="cuda")))
-    ref8 = sum(len(reference.compress_block_dict(dictionary, r))
-               for r in batch[:8])
+    ref_total = sum(len(native.compress_block_dict(dictionary, r))
+                    for r in batch)
     x0n, dl0n, _, _, D0, O0, S0 = ev.window_rows(batch)
     x0 = torch.from_numpy(x0n).to("cuda").to(torch.int32)
     dl0 = torch.from_numpy(dl0n).to("cuda")
@@ -1293,7 +1319,6 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
                  f"card")
         payloads[path] = got
         sizes[path] = total = sum(map(len, got))
-        got8 = sum(map(len, got[:8]))
         walls = host_walls(torch, call, REPS - 1)
         rcap = ev.hc_rcap(level, D)
         dev_ms = time_ms(torch, lambda: ev.encode_batch_vectorized(
@@ -1309,9 +1334,11 @@ def dict_phases(torch, card, kernel_row, rows, data, blocks, packed):
               f"too), peak device memory {peak:.2f} GiB; {total} compressed "
               f"bytes ({total / n_rec:.4f} of the records) against "
               f"{plain_total} ({plain_total / n_rec:.4f}) in fast mode "
-              f"without the dictionary; first 8 records {got8} bytes "
-              f"against {ref8} from the reference dictionary compressor "
-              f"({got8 / ref8:.4f}); first call {first_ms:.2f} ms, later "
+              f"without the dictionary and {ref_total} "
+              f"({ref_total / n_rec:.4f}) from the reference dictionary "
+              f"compressor (native host engine) on all {B} records "
+              f"({total / ref_total:.4f} of it); first call "
+              f"{first_ms:.2f} ms, later "
               + " ".join(f"{w:.2f}" for w in walls)
               + f"; median {wall:.2f} ms per {B}-record batch, "
               f"{n_rec / wall / 1e6:.4f} GB/s of records (host clock, end "
@@ -1748,8 +1775,9 @@ def big_phases(torch, card, kernel_row, rows, data, fast_total):
           + f"; median {wall:.1f} ms, {n_data / wall / 1e6:.4f} GB/s decoded "
           f"(host clock, end to end), of which the header walk "
           f"{scan_ms:.1f} ms; {card}")
-    where_the_time_goes(torch, decode_call, "big_decode", n_data, "decoded",
-                        card)
+    REPORT["big_decode"] = where_the_time_goes(
+        torch, decode_call, "big_decode", n_data, "decoded", card)
+    REPORT["big_walk_ms"] = scan_ms / len(big)
 
     # unknown length: caps of 1 MB and 2 MB exact, a short cap raises
     dec.host_decodes = 0
@@ -1800,6 +1828,10 @@ def big_phases(torch, card, kernel_row, rows, data, fast_total):
           f"{want!r} through codec.decode_batch, as the host decoder")
     walls = host_walls(torch, lambda: dec.decode_batch_unknown(
         packed, [2 * BIG_BLOCK] * len(packed)), 3)
+    REPORT["big_unknown"] = where_the_time_goes(
+        torch, lambda: dec.decode_batch_unknown(
+            packed, [2 * BIG_BLOCK] * len(packed)),
+        "big_unknown", n_data, "decoded", card)
     print(f"big_unknown slice: caps of 1 MB and 2 MB byte-exact, "
           f"host_decodes=0, a cap one byte short and the first block's "
           f"big_bad_blocks raise the host decoder's CorruptedBlockError; "
@@ -2047,7 +2079,7 @@ def stream_phases(torch, card, rows, data, blocks, packed):
     from lz4net_tpu_torch import codec
     from lz4net_tpu_torch import stream as lz
     from lz4net_tpu_torch.models import cuda as cuda_engine
-    from lz4net_tpu_torch.models import reference
+    from lz4net_tpu_torch.models import native, reference
     from lz4net_tpu_torch.ops import bigblock
     from lz4net_tpu_torch.ops.decode_vector import VectorDecoder
     from lz4net_tpu_torch.utils import corpus
@@ -2148,37 +2180,53 @@ def stream_phases(torch, card, rows, data, blocks, packed):
                   f"(decompress_stream) " + " ".join(f"{x:.1f}"
                                                      for x in r_walls)
                   + f" ms, {n_data / r / 1e3:.2f} MB/s (host clock); {card}")
-            where_the_time_goes(torch, lambda: lz.decompress_stream(framed),
-                                f"stream_read_all_{tag}", n_data, "decoded",
-                                card)
+            REPORT[f"stream_read_all_{tag}"] = where_the_time_goes(
+                torch, lambda: lz.decompress_stream(framed),
+                f"stream_read_all_{tag}", n_data, "decoded", card)
     finally:
         codec.decode_batch = real
 
-    # ---- HC: 1 MB at 64 KB chunks (strict HC runs on the host) ---------
-    hc_data = data[:BIG_BLOCK]
-    hc_chunks = corpus.split_blocks(hc_data, BLOCK)
+    # ---- HC: the 16 MB at 64 KB chunks (strict HC: the native host
+    # engine); the first 1 MB also against the Python HC parse's frames
+    hc_chunks = blocks
     t = time.perf_counter()
-    want = reference_frames(hc_chunks, [reference.compress_block_hc(
-        c, len(c)) for c in hc_chunks], True)
+    hc_pay = [native.compress_block_hc(c, len(c)) for c in hc_chunks]
+    nat_ms = (time.perf_counter() - t) * 1e3
+    want = reference_frames(hc_chunks, hc_pay, True)
+    head = corpus.split_blocks(data[:BIG_BLOCK], BLOCK)
+    t = time.perf_counter()
+    head_want = reference_frames(head, [reference.compress_block_hc(
+        c, len(c)) for c in head], True)
     ref_ms = (time.perf_counter() - t) * 1e3
-    t = time.perf_counter()
-    framed = lz.compress_stream(hc_data, high_compression=True,
-                                block_size=BLOCK)
-    w_ms = (time.perf_counter() - t) * 1e3
+    if lz.compress_stream(data[:BIG_BLOCK], high_compression=True,
+                          block_size=BLOCK) != head_want:
+        fail("HC stream: the first 1 MB's frames differ from those of "
+             "reference.compress_block_hc")
+    w_walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        framed = lz.compress_stream(data, high_compression=True,
+                                    block_size=BLOCK)
+        w_walls.append((time.perf_counter() - t) * 1e3)
     if framed != want:
         fail("HC stream: the frames differ from those of "
-             "reference.compress_block_hc")
+             "native.compress_block_hc")
     dec.host_decodes = 0
     t = time.perf_counter()
-    if lz.decompress_stream(framed) != hc_data or dec.host_decodes != 0:
+    if lz.decompress_stream(framed) != data or dec.host_decodes != 0:
         fail("HC stream: the read differs from the source or decoded on "
              "the host")
     r_ms = (time.perf_counter() - t) * 1e3
-    print(f"stream_hc cell: 1 MB in 16 chunks of 64 KB -> {len(framed)} "
-          f"bytes, equal to reference.compress_block_hc's frames; write "
-          f"{w_ms:.0f} ms ({len(hc_data) / w_ms / 1e3:.3f} MB/s; the "
-          f"reference HC parse, on the host, {ref_ms:.0f} ms), read-all "
-          f"{r_ms:.1f} ms, host_decodes=0 (host clock); {card}")
+    w_ms = statistics.median(w_walls)
+    REPORT["stream_hc_MBps"] = n_data / w_ms / 1e3
+    print(f"stream_hc cell: {n_data} bytes in {len(hc_chunks)} chunks of "
+          f"64 KB -> {len(framed)} bytes, equal to the frames of "
+          f"native.compress_block_hc (the first 1 MB to those of the Python "
+          f"reference.compress_block_hc, {ref_ms:.0f} ms on the host); "
+          f"write " + " ".join(f"{w:.0f}" for w in w_walls)
+          + f" ms ({n_data / w_ms / 1e3:.2f} MB/s; the native HC parse "
+          f"alone {nat_ms:.0f} ms), read-all {r_ms:.1f} ms, "
+          f"host_decodes=0 (host clock); {card}")
 
     # ---- an interactive read over a socket pair ------------------------
     parts = [data[j * BLOCK:(j + 1) * BLOCK] for j in range(4)]
@@ -2265,7 +2313,7 @@ def tools_phases(torch, card, data, name):
         r, k_s = tool("lz4net_tpu_torch", "continuous", "--mb", "16",
                       "--out", out, timeout=600)
         run = json.loads(r.stdout)
-        if set(run["engines"]) != {"cuda", "python-reference"} \
+        if set(run["engines"]) != {"cuda", "native", "python-reference"} \
                 or not all(e.get("verified") for e in run["engines"].values()):
             fail(f"CLI continuous: {run}")
         print(f"CLI verify (1 MB, strict and HC streams) {v_s:.1f} s, info "
@@ -2756,6 +2804,114 @@ def parallel_phase(torch, card, rows, data, blocks, packed):
     return by_path
 
 
+def native_phase(torch, card, data, blocks, host_build_s):
+    """Step 29: the native host engine (``models.native``) on the card's
+    machine: registered on the card but serving none of its roles, its
+    AutoTest, its encoders against the card's strict kernel and the
+    Python parses, its walks against the Python walks, and the numbers of
+    the paths it carries (steps 21 and 25)."""
+    from lz4net_tpu_torch import codec, registry
+    from lz4net_tpu_torch.models import cuda as cuda_engine
+    from lz4net_tpu_torch.models import native, reference
+    from lz4net_tpu_torch.ops import bigblock
+    from lz4net_tpu_torch.utils import corpus
+
+    svcs = registry.available_services("cuda")
+    if set(svcs) != {"cuda", "native", "python-reference"} \
+            or codec.codec_name() != "cuda/cuda/cudaHC":
+        fail(f"engines on the card {sorted(svcs)}, selection "
+             f"{codec.codec_name()!r}: native registered and every role "
+             f"on cuda expected")
+    t = time.perf_counter()
+    if not registry.auto_test(svcs["native"]):
+        fail("the native engine failed its AutoTest")
+    auto_ms = (time.perf_counter() - t) * 1e3
+
+    # strict: the encode_sequencer kernel's payloads on all 256 blocks
+    t = time.perf_counter()
+    nat = [native.compress_block(b) for b in blocks]
+    nat_ms = (time.perf_counter() - t) * 1e3
+    if nat != cuda_engine.compress_blocks(blocks, device="cuda"):
+        fail("native strict encode differs from the encode_sequencer "
+             "kernel's payloads")
+    # HC level 9 and dictionary: the Python parses' bytes on 8 blocks and
+    # 8 of the dictionary workload's records
+    records = corpus.split_blocks(data, RECORD)
+    dictionary = b"".join(records[0::256])
+    batch = records[1::4][:8]
+    t = time.perf_counter()
+    pairs = (
+        ("HC L9", [native.compress_block_hc(b) for b in blocks[:8]],
+         [reference.compress_block_hc(b) for b in blocks[:8]]),
+        ("dictionary", [native.compress_block_dict(dictionary, r)
+                        for r in batch],
+         [reference.compress_block_dict(dictionary, r) for r in batch]),
+        ("HC L9 dictionary", [native.compress_block_hc_dict(dictionary, r)
+                              for r in batch],
+         [reference.compress_block_hc_dict(dictionary, r) for r in batch]))
+    py_ms = (time.perf_counter() - t) * 1e3
+    for what, got, want in pairs:
+        if got != want:
+            fail(f"native {what} encode differs from the Python parse")
+
+    # the big-block walks against the Python walks: the 16 blocks of 1 MB
+    # (the card's strict payloads) and the first one's big_bad_blocks
+    big = corpus.split_blocks(data, BIG_BLOCK)
+    pays = cuda_engine.compress_blocks(big, device="cuda")
+    t = time.perf_counter()
+    walks = [bigblock.scan(p) for p in pays]
+    walk_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    ref_walks = [bigblock.scan_reference(p) for p in pays]
+    ref_walk_ms = (time.perf_counter() - t) * 1e3
+    if walks != ref_walks:
+        fail("bigblock.scan differs from scan_reference on the 1 MB blocks")
+    cap = 2 * BIG_BLOCK
+    t = time.perf_counter()
+    lens = [native.unknown_output_length(p, cap) for p in pays]
+    u_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    ref_lens = [reference.unknown_output_length(p, cap) for p in pays]
+    ref_u_ms = (time.perf_counter() - t) * 1e3
+    if lens != ref_lens or lens != [len(b) for b in big]:
+        fail("native.unknown_output_length differs from the Python walk")
+    for what, bad in corpus.big_bad_blocks(pays[0]):
+        if bigblock.scan(bad) != bigblock.scan_reference(bad):
+            fail(f"bigblock.scan differs from scan_reference on {what}")
+        for c in (cap, len(big[0])):
+            got = _outcome(reference, lambda: native.unknown_output_length(
+                bad, c))
+            want = _outcome(reference,
+                            lambda: reference.unknown_output_length(bad, c))
+            if not _same(got, want) or not isinstance(want, Exception):
+                fail(f"native.unknown_output_length on {what}: {got!r}, "
+                     f"the Python walk {want!r}")
+    n = len(big)
+
+    def share(key):
+        idle, late = REPORT[key]
+        return (f"late {late:.1f} ms, idle "
+                + ("not measured" if idle is None else f"{idle:.3f}"))
+
+    print(f"native host engine: built in {host_build_s:.1f} s (g++, "
+          f"-O3 -march=native), AutoTest {auto_ms:.1f} ms; registered on "
+          f"the card, selection {codec.codec_name()}; strict encode of the "
+          f"{len(blocks)} blocks {nat_ms:.1f} ms on the host, equal to "
+          f"encode_sequencer's payloads; HC L9, dictionary and HC L9 "
+          f"dictionary equal to the Python parses on 8 blocks and 8 records "
+          f"(the Python parses {py_ms:.0f} ms); {card}")
+    print(f"native walks: bigblock.scan {walk_ms / n:.3f} ms a 1 MB block "
+          f"(scan_reference {ref_walk_ms / n:.1f} ms), unknown_output_length "
+          f"{u_ms / n:.3f} ms (the Python walk {ref_u_ms / n:.1f} ms), equal "
+          f"on the {n} blocks and the big_bad_blocks; big_decode "
+          f"{share('big_decode')}, the walk {REPORT['big_walk_ms']:.3f} ms "
+          f"a block; big_unknown {share('big_unknown')}; stream read-all at "
+          f"1 MB chunks {share('stream_read_all_1mb')} "
+          f"({n * BIG_BLOCK / REPORT['stream_read_all_1mb'][1] / 1e3:.1f} "
+          f"MB/s); stream HC at 64 KB chunks "
+          f"{REPORT['stream_hc_MBps']:.2f} MB/s on 16 MB; {card}")
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as select_cache:
         return smoke(select_cache)
@@ -2774,7 +2930,7 @@ def smoke(select_cache) -> int:
     try:
         from lz4net_tpu_torch import _build, codec, registry
         from lz4net_tpu_torch.models import cuda as cuda_engine
-        from lz4net_tpu_torch.models import reference
+        from lz4net_tpu_torch.models import native, reference
         from lz4net_tpu_torch.ops import decode_vector as dv
         from lz4net_tpu_torch.ops import (fused_gather, parse_kernel,
                                           records_kernel, resolve_kernel)
@@ -2795,6 +2951,10 @@ def smoke(select_cache) -> int:
     t = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    native.build()
+    host_build_s = time.perf_counter() - t
+    print(f"native host engine build (g++): {host_build_s:.1f} s")
     # the engine selection, from an empty cache so that no order persisted
     # on this machine moves an engine, before any call whose launches
     # are counted (the AutoTest launches kernels)
@@ -3099,6 +3259,7 @@ def smoke(select_cache) -> int:
     select_launches = select_phase(torch, card, rows, data)
     parallel_launches = parallel_phase(torch, card, rows, data, blocks,
                                        packed)
+    native_phase(torch, card, data, blocks, host_build_s)
     paths = [("stream_read_after_select", select_launches),
              *parallel_launches.items(),
              ("decode", launches), ("encode", enc_launches),

@@ -45,7 +45,8 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
     bound).  ``dictionary`` enables preset-dictionary matching (decode
     must supply the same bytes): fast mode runs the vector encoder's P
     mode on the card, strict mode the reference dictionary compressor on
-    the host, as the JAX package runs it on its host oracle.
+    the native host engine, as the JAX package runs it on its host
+    oracle.
     """
     _check_mode(mode)
     if len(src) == 0:
@@ -71,9 +72,10 @@ def encode_hc(src: bytes, dst_maxlen: int | None = None,
     fixed-effort parse).
 
     ``mode="strict"`` (the default) is the reference HC parse, run on the
-    host as the JAX package runs it.  ``mode="fast"`` runs the fast-HC
-    encoder on the card: format-valid output, byte-identical to the JAX
-    package's fast-HC mode, not to the reference HC parse.  Returns b""
+    native host engine as the JAX package runs it on its C++ oracle.
+    ``mode="fast"`` runs the fast-HC encoder on the card: format-valid
+    output, byte-identical to the JAX package's fast-HC mode, not to the
+    reference HC parse.  Returns b""
     when the result would not fit ``dst_maxlen`` (default: the
     worst-case bound).  ``dictionary`` as in ``encode``.
     """

@@ -58,9 +58,9 @@ HC_LEVEL_DEFAULT = 9
 
 def hc_level_attempts(level: int) -> int:
     """Map an HC compression level (1..9) to a chain-walk attempt budget
-    (level 9: the reference's fixed 256-attempt search)."""
+    (levels 8 and 9: the reference's fixed 256-attempt search)."""
     level = max(1, min(9, int(level)))
-    return 1 << level  # 2,4,...,256
+    return min(1 << level, MAX_NB_ATTEMPTS)  # 2,4,...,256,256
 
 
 def maximum_output_length(input_length: int) -> int:

@@ -9,8 +9,9 @@ Port of the entry points of ``lz4net_tpu/models/tpu.py``: strict encode
 (:117-124) and decode (:127-195), with strict dictionary encode
 (``compress_block_dict``, ``compress_block_hc_dict``; the JAX facade's
 ``_dict_engine``).  Strict HC and strict dictionary encode run on the
-host's reference compressor, as the JAX package runs them on its host
-oracle: no device kernel of either package computes those parses.  The JAX
+native host engine (``models.native``), as the JAX package runs them on
+its host oracle (``_oracle()``): no device kernel of either package
+computes those parses.  The JAX
 package makes a decoder or encoder per call; here
 one vector decoder and one vector encoder per device are kept, so their
 ``host_decodes`` and ``host_encodes`` counts can be read after a run.
@@ -27,12 +28,12 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import MAX_NB_ATTEMPTS, hc_level_attempts
+from ..constants import hc_level_attempts
 from ..ops.decode_vector import VectorDecoder, resolve_device
 from ..ops.encode_sequencer import SequencerEncoder
 from ..ops.encode_sequencer import compress_block  # noqa: F401 (one block)
 from ..ops.encode_vector import VectorEncoder
-from . import reference
+from . import native
 
 _DECODERS: dict[torch.device, VectorDecoder] = {}
 _ENCODERS: dict[torch.device, VectorEncoder] = {}
@@ -128,23 +129,17 @@ def compress_blocks_fast_dict(blocks, dictionary, dst_maxlens=None,
                                         dictionary=dictionary)
 
 
-def _hc_attempts(level: int) -> int:
-    """Chain-walk attempts of the strict HC parse at ``level``: the
-    reference's fixed 256 from level 9, fewer below."""
-    return MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
-
-
 def compress_block_hc(src: bytes, dst_maxlen: int | None = None,
                       level: int = 9, device="cuda") -> bytes:
     """Strict HC encode: the reference HC parse (level 9 the reference's
     256-attempt chain walk, lower levels fewer attempts), b"" when longer
-    than ``dst_maxlen``.  It runs on the host's reference compressor, as
-    the JAX package's strict HC runs on its host oracle; the device's HC
-    is ``compress_blocks_hc_fast``.  ``device`` is checked as every entry
+    than ``dst_maxlen``.  It runs on the native host engine, as the JAX
+    package's strict HC runs on its host oracle; the device's HC is
+    ``compress_blocks_hc_fast``.  ``device`` is checked as every entry
     point checks it."""
     resolve_device(device)
-    return reference.compress_block_hc(bytes(src), dst_maxlen,
-                                       _hc_attempts(level))
+    return native.compress_block_hc(bytes(src), dst_maxlen,
+                                    hc_level_attempts(level))
 
 
 def compress_block_dict(dictionary: bytes, src: bytes,
@@ -152,11 +147,12 @@ def compress_block_dict(dictionary: bytes, src: bytes,
                         device="cuda") -> bytes:
     """Strict encode against a preset dictionary: the reference
     dictionary compressor's bytes, b"" when longer than ``dst_maxlen``.
-    It runs on the host, as the JAX package runs it on its host oracle
-    (no device kernel of either package computes this parse); the
-    device's dictionary encode is ``compress_blocks_fast_dict``."""
+    It runs on the native host engine, as the JAX package runs it on its
+    host oracle (no device kernel of either package computes this
+    parse); the device's dictionary encode is
+    ``compress_blocks_fast_dict``."""
     resolve_device(device)
-    return reference.compress_block_dict(dictionary, bytes(src), dst_maxlen)
+    return native.compress_block_dict(dictionary, bytes(src), dst_maxlen)
 
 
 def compress_block_hc_dict(dictionary: bytes, src: bytes,
@@ -167,8 +163,8 @@ def compress_block_hc_dict(dictionary: bytes, src: bytes,
     ``compress_block_hc``; the device's is ``compress_blocks_fast_dict``
     at ``level`` 1-9."""
     resolve_device(device)
-    return reference.compress_block_hc_dict(dictionary, bytes(src),
-                                            dst_maxlen, _hc_attempts(level))
+    return native.compress_block_hc_dict(dictionary, bytes(src), dst_maxlen,
+                                         hc_level_attempts(level))
 
 
 def compress_blocks_hc_fast(blocks, dst_maxlens=None, level: int = 9,

@@ -1,13 +1,14 @@
-"""Engine adapters of the CUDA port (counterparts of ``TpuService`` and
-``PythonReferenceService`` in ``lz4net_tpu/models/service_adapters.py:
-12-38, 92-128``).  ``NativeService`` has none: the JAX package's C++
-host oracle is not ported (``models/reference.py`` holds the port's
-host codecs)."""
+"""Engine adapters of the CUDA port: ``CudaService``, ``NativeService``
+and ``PythonReferenceService``, the counterparts of ``TpuService``,
+``NativeService`` and ``PythonReferenceService`` in
+``lz4net_tpu/models/service_adapters.py:12-128``."""
 
 from __future__ import annotations
 
-from ..constants import HC_LEVEL_DEFAULT, MAX_NB_ATTEMPTS, hc_level_attempts
-from . import cuda, reference
+import numpy as np
+
+from ..constants import HC_LEVEL_DEFAULT, hc_level_attempts
+from . import cuda, native, reference
 
 
 class PythonReferenceService:
@@ -20,8 +21,8 @@ class PythonReferenceService:
 
     def encode_hc(self, src: bytes, dst_maxlen: int,
                   level: int = HC_LEVEL_DEFAULT) -> bytes:
-        attempts = MAX_NB_ATTEMPTS if level >= 9 else hc_level_attempts(level)
-        return reference.compress_block_hc(src, dst_maxlen, attempts)
+        return reference.compress_block_hc(src, dst_maxlen,
+                                           hc_level_attempts(level))
 
     def decode(self, src: bytes, output_length: int) -> bytes:
         return reference.decompress_block(src, output_length)
@@ -40,6 +41,49 @@ class PythonReferenceService:
                 for b, n in zip(blocks, output_lengths)]
 
 
+class NativeService:
+    """The native host engine (``models.native``), the port's copy of the
+    JAX package's C++ oracle and the analogue of the reference's
+    mixed-mode native engine (LZ4mm + libLZ4).  Building it raises
+    ``RuntimeError`` where the host compiler cannot."""
+
+    codec_name = "native"
+
+    def __init__(self):
+        native.build()
+
+    def encode(self, src: bytes, dst_maxlen: int) -> bytes:
+        return native.compress_block(src, dst_maxlen)
+
+    def encode_hc(self, src: bytes, dst_maxlen: int,
+                  level: int = HC_LEVEL_DEFAULT) -> bytes:
+        return native.compress_block_hc(src, dst_maxlen,
+                                        hc_level_attempts(level))
+
+    def decode(self, src: bytes, output_length: int) -> bytes:
+        return native.decompress_block(src, output_length)
+
+    def decode_unknown(self, src: bytes, max_output_length: int) -> bytes:
+        return native.decompress_block_unknown(src, max_output_length)
+
+    def decode_dict(self, src: bytes, dictionary: bytes,
+                    output_length: int) -> bytes:
+        return native.decompress_block_dict(src, dictionary, output_length)
+
+    def decode_batch(self, blocks, output_lengths):
+        """Batched known-length decode over the pthread C++ path."""
+        blocks = [bytes(b) for b in blocks]
+        if not blocks:
+            return []
+        lengths = [len(b) for b in blocks]
+        offsets = np.cumsum([0] + lengths[:-1])
+        out_lengths = list(output_lengths)
+        concat, _read = native.decompress_blocks(
+            b"".join(blocks), offsets, lengths, out_lengths)
+        ends = np.cumsum([0] + out_lengths)
+        return [concat[a:b] for a, b in zip(ends[:-1], ends[1:])]
+
+
 class CudaService:
     """Batched CUDA engine over independent blocks."""
 
@@ -55,8 +99,8 @@ class CudaService:
 
     def encode_hc(self, src: bytes, dst_maxlen: int,
                   level: int = HC_LEVEL_DEFAULT) -> bytes:
-        """Strict HC encode: the reference HC parse (on the host, as the
-        JAX package's engine runs it)."""
+        """Strict HC encode: the reference HC parse (on the native host
+        engine, as the JAX package's engine runs it)."""
         return cuda.compress_block_hc(src, dst_maxlen, level, self.device)
 
     def decode(self, src: bytes, output_length: int) -> bytes:

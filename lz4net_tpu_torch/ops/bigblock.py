@@ -23,14 +23,17 @@ a sequence of fragments of at most 96 KB of output:
 
 The JAX package walks twice in its native C++ library
 (``lz4_oracle.cpp``: ``lz4tpu_segment_index``, ``lz4tpu_giant_seqs``);
-the port walks once, in Python, with the same results, ``None``
-included, on every input.  It is host work in the JAX package too; the
-walk takes about 58 ms a 1 MB block on the host CPU of an NVIDIA H100
-80GB HBM3 machine (``PERF.md``), which a walk on the card over
-``parse_tokens``' marks could replace.
+the port walks once, in its own copy of that library
+(``models/native.scan``, ``lz4h_scan``), with the same results, ``None``
+included, on every input.  ``scan_reference`` is the same walk in
+Python, its plain version, which the tests hold it against; no card
+path calls it.  It is host work in the JAX package too; a walk on the
+card over ``parse_tokens``' marks could replace it.
 """
 
 from __future__ import annotations
+
+from ..models import native
 
 OUT_TARGET = 48 * 1024          # boundary spacing; a segment is < 2x this
 MAX_SEG_OUT = 96 * 1024         # the device passes' cap
@@ -60,26 +63,33 @@ def _synth_match(off: int, ml: int) -> bytes:
 
 
 def scan(block: bytes):
+    """The header walk of ``block`` on the native host engine
+    (``models/native.scan``): ``scan_reference``'s result on every
+    input."""
+    return native.scan(block, OUT_TARGET)
+
+
+def scan_reference(block: bytes):
     """One walk over the sequence headers of ``block`` (literal bytes are
     skipped by length, never read): (comp_offs, out_offs, out_len,
     giants, last), or None for malformed input.
 
     * comp_offs, out_offs: the compressed and output offsets of the first
       sequence at or past each ``OUT_TARGET`` mark, the first (0, 0);
-      out_len: the block's decoded length (``lz4tpu_segment_index``
-      there; None beyond ``len(block) // 16 + 2`` boundaries, as
-      ``models/native.segment_index`` sizes its arrays);
+      out_len: the block's decoded length (the JAX package's
+      ``lz4tpu_segment_index``; None beyond ``len(block) // 16 + 2``
+      boundaries, the arrays ``models/native.scan`` sizes);
     * giants: the sequences whose output spans more than ``OUT_TARGET``
       bytes, each (comp_off, out_off, lit_len, lit_src, match_off,
-      match_len) (``lz4tpu_giant_seqs`` there), or None beyond
-      ``len(block) // OUT_TARGET + 8`` of them
-      (``models/native.giant_seqs``);
+      match_len) (its ``lz4tpu_giant_seqs``), or None beyond
+      ``len(block) // OUT_TARGET + 8`` of them;
     * last: the output offsets where the block's last sequence with a
       match ends its literals and its match, which the block-end rules
       of the known-length decoders bind on; None without a match.
 
-    The native library walks twice; on every input where its first walk
-    succeeds the second walks the same headers, so one walk gives both.
+    The JAX package's native library walks twice; on every input where
+    its first walk succeeds the second walks the same headers, so one
+    walk gives both.  The plain version of ``scan``.
     """
     n = len(block)
     if n <= 0:

@@ -17,8 +17,8 @@ plain PyTorch version beside it:
 The kernels' gathers are exact, so the JAX decoder's sequence/event caps
 and its second, dense-caps pass serve nothing here: one pass decodes
 every block, and a block the device cannot certify is re-decoded by the
-host oracle (``models.reference``), which raises ``CorruptedBlockError``
-for malformed input.  ``VectorDecoder.host_decodes`` counts those blocks.
+host oracle (``models.native``, the native host engine), which raises
+``CorruptedBlockError`` for malformed input.  ``VectorDecoder.host_decodes`` counts those blocks.
 
 A preset dictionary rides a prefix of P positions (a multiple of 8192)
 in front of each row's output domain: the window, cut to its last 64 KB,
@@ -38,9 +38,10 @@ end; ``records_to_state`` also gives the positions those rules bind on
 (its ``ends``): the ends of the block's last sequence with a match
 (positions only grow from one sequence to the next, so the earlier ones
 keep them too).  A block is accepted only where they hold: the
-known-length decoder's (``reference.decompress_block``) on the
-known-length and dictionary paths, the hardened decoder's
-(``reference._unknown_sequences``) on the unknown-length path.  A big
+known-length decoder's (``reference.decompress_block``, whose rules
+``native.decompress_block`` keeps) on the known-length and dictionary
+paths, the hardened decoder's (``reference._unknown_sequences``) on the
+unknown-length path.  A big
 block's are checked on its header walk (``bigblock.scan``), once for
 the block: a mid-block fragment ends on a match by design.
 """
@@ -52,7 +53,7 @@ import torch
 
 from ..constants import (COPYLENGTH, LASTLITERALS, MAX_DISTANCE_WINDOW,
                          MFLIMIT)
-from ..models import reference
+from ..models import native, reference
 from .bigblock import WINDOW, scan, split_fragments
 from .fused_gather import rowbase_gather
 from .parse_kernel import parse_tokens
@@ -271,9 +272,9 @@ class VectorDecoder:
 
         def host(i):
             self.host_decodes += 1
-            return (reference.decompress_block_dict(
+            return (native.decompress_block_dict(
                 blocks[i], dictionary[i], out_lens[i]) if dictionary
-                else reference.decompress_block(blocks[i], out_lens[i]))
+                else native.decompress_block(blocks[i], out_lens[i]))
 
         if small:
             lens = np.array([out_lens[i] for i in small], np.int64)
@@ -313,7 +314,7 @@ class VectorDecoder:
         raises the reference's error and counts in ``host_decodes``.  So
         does a block with a fragment the card cannot certify, unless
         ``by_fragment``: then (the known-length paths) that fragment alone
-        is re-decoded on the host by ``reference.decompress_fragment``, as
+        is re-decoded on the host by ``native.decompress_fragment``, as
         the JAX package's ``native.decompress_fragment`` (counted), and
         the block goes to ``host(i)`` only where that refuses too.
         ``scans`` carries each block's ``bigblock.scan``, already walked
@@ -352,7 +353,7 @@ class VectorDecoder:
                 piece = None
                 if by_fragment:
                     try:
-                        piece = reference.decompress_fragment(
+                        piece = native.decompress_fragment(
                             fr[j], windows[j], n)
                     except reference.CorruptedBlockError:
                         pass
@@ -376,7 +377,7 @@ class VectorDecoder:
         (``unknown_ends_ok``).  A block over 96 KB, or one whose parse implies
         more than 96 KB under a cap above that, is walked on the host
         twice: the hardened decoder's walk over its headers
-        (``reference.unknown_output_length``, every block-end and cap
+        (``native.unknown_output_length``, every block-end and cap
         rule of that decoder) gives the length n it decodes to, and
         ``bigblock.scan`` must find the same n; then it decodes as a
         known-length big block of n bytes, every fragment certified on
@@ -391,7 +392,7 @@ class VectorDecoder:
 
         def host(i):
             self.host_decodes += 1
-            return reference.decompress_block_unknown(blocks[i], caps[i])
+            return native.decompress_block_unknown(blocks[i], caps[i])
 
         big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
         live = [i for i, b in enumerate(blocks)
@@ -412,7 +413,7 @@ class VectorDecoder:
         walked = []
         for i in big:
             try:
-                n = reference.unknown_output_length(blocks[i], caps[i])
+                n = native.unknown_output_length(blocks[i], caps[i])
             except reference.CorruptedBlockError:
                 continue                 # the host decoder raises it
             # the walks part only where the hardened one stops reading a

@@ -62,9 +62,9 @@ that ``encode_batch_vectorized`` returns.  The chain record path
 
 The output is the JAX vector encoder's byte string exactly: format-valid
 LZ4 that any decoder reads, not the reference compressor's parse.  A
-block the device flags goes to the host compressor
-(``models.reference.compress_block``, or ``compress_block_hc`` for HC,
-and their ``_dict`` forms with a dictionary);
+block the device flags goes to the host compressor, the native host
+engine (``models.native.compress_block``, or ``compress_block_hc`` for
+HC, and their ``_dict`` forms with a dictionary);
 ``VectorEncoder.host_encodes`` counts those blocks.
 """
 
@@ -76,7 +76,7 @@ import torch
 from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
                          MFLIMIT, MINLENGTH, MINMATCH,
                          maximum_output_length)
-from ..models import reference
+from ..models import native
 from .decode_vector import CH, _cdiv, pack_windows, resolve_device
 from .bigblock import _synth_literals
 from .chain_kernel import mark_chain
@@ -721,14 +721,13 @@ class VectorEncoder:
 
     @staticmethod
     def _host_encode(block, dst_maxlen, hc_level, dictionary):
-        """A flagged block on the host compressor (encode_vector.py:
+        """A flagged block on the native host engine (encode_vector.py:
         1214-1226 there), with the whole dictionary as given."""
         if dictionary:
             if hc_level:
-                return reference.compress_block_hc_dict(dictionary, block,
-                                                        dst_maxlen)
-            return reference.compress_block_dict(dictionary, block,
-                                                 dst_maxlen)
+                return native.compress_block_hc_dict(dictionary, block,
+                                                     dst_maxlen)
+            return native.compress_block_dict(dictionary, block, dst_maxlen)
         if hc_level:
-            return reference.compress_block_hc(block, dst_maxlen)
-        return reference.compress_block(block)
+            return native.compress_block_hc(block, dst_maxlen)
+        return native.compress_block(block)

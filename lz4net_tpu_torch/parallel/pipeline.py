@@ -21,8 +21,9 @@ where the reference decoder (``models.reference.decompress_block``)
 returns bytes, and they are the same bytes: the kernel's walk holds the
 reference decoder's rules and stops once the output is full, so trailing
 input bytes are accepted as that decoder accepts them.  A real row with
-``out_len == 0``, where the walk never starts, goes to that decoder on
-the host.  Every other real row raises ``CorruptedBlockError`` (the JAX
+``out_len == 0``, where the walk never starts, goes to the host's
+known-length decoder (``models.native.decompress_block``, which keeps
+that decoder's rules).  Every other real row raises ``CorruptedBlockError`` (the JAX
 pipeline checks only the bytes written, and returns blocks the kernel
 there accepts but the reference rejects: one that ends in a match, a
 match of offset 0).  The decision is made after the gather, on every
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models import reference
+from ..models import native, reference
 from ..ops.decode_sequencer import decode_sequencer
 from ..ops.decode_vector import (device_pass, known_certified,
                                  pack_blocks as pack_vector_blocks,
@@ -140,7 +141,7 @@ def unpack_blocks(out, status, lens, n_real: int, comp) -> list[bytes]:
         if read >= 0 and wrote == n and n > 0:
             results.append(out[i, :n].tobytes())
         elif n == 0:
-            results.append(reference.decompress_block(
+            results.append(native.decompress_block(
                 comp[i, :comp_len].tobytes(), 0))
         else:
             raise reference.CorruptedBlockError(
@@ -190,7 +191,7 @@ def distributed_decode_dict(blocks, out_lens, dictionary, mesh=None,
     """Decode dictionary-compressed blocks sharded over the mesh, the
     window (the dictionary's last 64 KB) broadcast once from rank 0.
     Every rank re-decodes the real rows that no rank certified with the
-    host decoder (``reference.decompress_block_dict``, counted in
+    host decoder (``native.decompress_block_dict``, counted in
     ``host_decodes``), which raises for malformed input."""
     global host_decodes
     if mesh is None:
@@ -215,6 +216,6 @@ def distributed_decode_dict(blocks, out_lens, dictionary, mesh=None,
             results.append(out[i, :out_lens[i]].tobytes())
         else:
             host_decodes += 1
-            results.append(reference.decompress_block_dict(
+            results.append(native.decompress_block_dict(
                 blocks[i], dictionary, out_lens[i]))
     return results

@@ -1,10 +1,13 @@
 """Engine selection of the CUDA port (counterpart of
 ``lz4net_tpu/registry.py``, lz4net's ILZ4Service seam).
 
-Two engines serve each device:
+Three engines serve each device:
 
 * ``cuda``             -- ``CudaService(device)``: the port's kernels on the
                           card (their plain versions for ``device="cpu"``);
+* ``native``           -- ``NativeService``: the native host engine
+                          (``models.native``, C++ built with the host
+                          compiler);
 * ``python-reference`` -- ``PythonReferenceService``: the host codecs of
                           ``models.reference``.
 
@@ -13,15 +16,18 @@ the encoder, decoder and HC encoder are chosen from a preference order
 per role: ``cuda`` first, unless ``measure_preferences`` timed the
 engines on this host and persisted another order.  There is one
 selection per device; the default device is the card.  Only an engine
-that runs on the card serves the card's roles: ``python-reference`` is
-registered there (the continuous harness surveys it) but no order,
-static or measured, selects it, so the card's main path never moves to
-the host.
+that runs on the card serves the card's roles: ``native`` and
+``python-reference`` are registered there (the continuous harness and
+``info`` survey them) but no order, static or measured, selects them,
+so the card's main path never moves to the host.  On the CPU ``cuda``
+(the plain versions) leads the static order too, so the CPU runs the
+plain versions unless a measured order puts a host engine first.
 
 Unlike the JAX package, no probe failure is swallowed for the ``cuda``
-engine: if it cannot be built, fails its AutoTest or does not finish it
-within ``AUTOTEST_TIMEOUT_S``, ``initialize`` raises ``RuntimeError``
-with the cause, and the host engine never takes its place unnoticed.
+and ``native`` engines: if one cannot be built, fails its AutoTest or
+does not finish it within ``AUTOTEST_TIMEOUT_S``, ``initialize`` raises
+``RuntimeError`` with the cause, and no other engine takes its place
+unnoticed.
 ``device=`` (the CLI's ``--device``) replaces the JAX package's
 ``LZ4NET_DISABLE_ENGINES``.  The knobs kept are ``LZ4NET_SELECT_CACHE``
 (where the measured orders live; the port's own file, never the JAX
@@ -46,7 +52,7 @@ _log = logging.getLogger("lz4net_tpu_torch")
 ROLES = ("encode", "decode", "encode_hc")
 # the static order (the reference hard-codes benchmark-derived orders,
 # `LZ4Codec.cs:103-167`): the card's engine leads every role
-ENGINES = ("cuda", "python-reference")
+ENGINES = ("cuda", "native", "python-reference")
 STATIC_ORDER = {role: ENGINES for role in ROLES}
 CARD_ENGINES = ("cuda",)        # the engines that may serve a CUDA device
 AUTOTEST_TIMEOUT_S = 120.0      # after the kernels are built
@@ -228,13 +234,13 @@ def measure_preferences(block_kb: int = 64, n_blocks: int = 4,
     the card's) per role on ``n_blocks`` blocks of ``block_kb`` KB and
     return (and persist) the measured orders, fastest first.  An engine
     that raises here raises to the caller."""
-    from .models import reference
+    from .models import native
     from .utils import corpus
 
     initialize(device=device)
     data = corpus.silesia_like(block_kb * 1024 * n_blocks, seed=7)
     blocks = corpus.split_blocks(data, block_kb * 1024)
-    packed = [reference.compress_block(b) for b in blocks]
+    packed = [native.compress_block(b) for b in blocks]
     orders = {}
     for role in ROLES:
         timed = sorted((_bench_role(svc, role, blocks, packed), name)
@@ -281,11 +287,13 @@ def _measured_preferences(device) -> Optional[dict]:
 
 def initialize(force: bool = False, device="cuda") -> None:
     """Build, probe and AutoTest the engines of ``device`` and select its
-    encoder, decoder and HC encoder.  The ``cuda`` engine must pass (it
-    raises otherwise); the kernels are built before the AutoTest's clock
-    starts, so a cold build is never taken for a hang."""
+    encoder, decoder and HC encoder.  The ``cuda`` and ``native`` engines
+    must pass (they raise otherwise); the kernels and the host library are
+    built before the AutoTest's clock starts, so a cold build is never
+    taken for a hang."""
     from . import _build
-    from .models.service_adapters import CudaService, PythonReferenceService
+    from .models.service_adapters import (CudaService, NativeService,
+                                          PythonReferenceService)
     from .ops.decode_vector import resolve_device
 
     with _init_lock:
@@ -298,6 +306,7 @@ def initialize(force: bool = False, device="cuda") -> None:
         if dev.type == "cuda":
             _build.load()
         register("cuda", CudaService(dev), required=True, device=dev)
+        register("native", NativeService(), required=True, device=dev)
         register("python-reference", PythonReferenceService(), device=dev)
 
         prefs = _preferences(dev)

@@ -17,7 +17,7 @@ strictly smaller than the original is stored raw (`LZ4Stream.cs:248-255`).
 
 Writes encode each chunk through ``codec.encode`` (strict, the reference
 compressor's bytes, on the card) or ``codec.encode_hc`` (strict HC, the
-reference HC parse on the host).  Reads batch the chunk records they
+reference HC parse on the native host engine).  Reads batch the chunk records they
 read ahead into one ``codec.decode_batch`` call, the port's main decode
 path.  Every entry point takes ``device=``, the card by default.
 """

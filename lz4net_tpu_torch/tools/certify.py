@@ -5,7 +5,8 @@ card, each byte checked, with no block decoded or encoded on the host.
     python -m lz4net_tpu_torch.tools.certify [decode big encode strict]
 
 Checks, on the 1 MB corpus (seed 42) in 64 KB blocks compressed by the
-reference compressor:
+native host engine (``models.native``, the reference compressor's
+bytes), which also decodes the encode checks' payloads on the host:
 
   decode   the vector decoder over the 16 blocks (``decode_batch``);
            unknown-length decode of 4 of them; dictionary decode of a
@@ -45,7 +46,7 @@ def main(argv=None) -> int:
         return 2
 
     from .. import _build
-    from ..models import cuda, reference
+    from ..models import cuda, native
     from ..ops.decode_sequencer import SequencerDecoder
     from ..utils import corpus
 
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
 
     data = corpus.silesia_like(1 << 20, seed=42)
     blocks = corpus.split_blocks(data, 64 * 1024)
-    packed = [reference.compress_block(b) for b in blocks]
+    packed = [native.compress_block(b) for b in blocks]
     lens = [len(b) for b in blocks]
 
     def on_card(name, call, want, detail=""):
@@ -76,17 +77,17 @@ def main(argv=None) -> int:
         on_card("decode.unknown", lambda: dec.decode_batch_unknown(
             packed[:4], [n + 32 for n in lens[:4]]), blocks[:4])
         dictionary, body = data[:4096], data[4096:4096 + 30000]
-        pk = reference.compress_block_dict(dictionary, body)
+        pk = native.compress_block_dict(dictionary, body)
         on_card("decode.dict", lambda: dec.decode_batch(
             [pk], [len(body)], dictionary=dictionary), [body])
 
     if "big" in which:
-        pk = reference.compress_block(data)
+        pk = native.compress_block(data)
         on_card("big.decode", lambda: dec.decode_batch([pk], [len(data)]),
                 [data], "1 MB")
         on_card("big.unknown", lambda: dec.decode_batch_unknown(
             [pk], [2 << 20]), [data], "1 MB, 2 MB cap")
-        on_card("big.encode", lambda: [reference.decompress_block(
+        on_card("big.encode", lambda: [native.decompress_block(
             p, len(data)) for p in cuda.compress_blocks_fast([data],
                                                              device=dev)],
                 [data], "1 MB")
@@ -99,7 +100,7 @@ def main(argv=None) -> int:
                                                     device=dev)
                        if level else cuda.compress_blocks_fast(sub,
                                                                device=dev))
-                return [reference.decompress_block(p, len(b))
+                return [native.decompress_block(p, len(b))
                         for p, b in zip(out, sub)]
             on_card(name, round_trip, sub, f"{len(sub)} blocks")
 

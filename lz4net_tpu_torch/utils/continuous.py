@@ -61,8 +61,8 @@ def run_continuous(total_mb: float = 64, block_size: int = 64 * 1024,
     ``device``; merges the best results so far into ``out_path`` (the
     reference's XML/CSV sink, as JSON).  The slow engines take a smaller
     slice, at least 1 MB (or the whole corpus, if smaller): ``cuda``
-    1/16, whose strict HC runs the host's reference parse, and
-    ``python-reference`` 1/64.  An engine that raises is recorded with
+    1/16 (a block a call; on the CPU its plain versions) and
+    ``python-reference`` 1/64; ``native`` takes it all.  An engine that raises is recorded with
     its error."""
     data = corpus.silesia_like(int(total_mb * MB), seed=42)
     available = registry.available_services(device)

@@ -59,6 +59,7 @@ def test_info_continuous_and_select(tmp_path):
     assert "selected: cuda/cuda/cudaHC" in r.stdout
     assert f"torch {torch.__version__}" in r.stdout
     assert "engine python-reference" in r.stdout
+    assert "engine native: NativeService" in r.stdout
     out = tmp_path / "results.json"
     r = _run(["continuous", "--mb", "0.125", "--out", str(out)],
              str(tmp_path))
@@ -69,7 +70,7 @@ def test_info_continuous_and_select(tmp_path):
     hist = json.loads(out.read_text())
     assert len(hist["runs"]) == 2
     engines = hist["runs"][-1]["engines"]
-    assert set(engines) == {"cuda", "python-reference"}
+    assert set(engines) == {"cuda", "native", "python-reference"}
     assert all(e["verified"] for e in engines.values())
     assert set(hist["best"]) == set(engines)
     r = _run(["select", "--kb", "4", "--blocks", "1"], str(tmp_path))

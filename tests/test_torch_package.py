@@ -62,6 +62,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 17
     assert {ROOT / "lz4net_tpu_torch" / "parallel" / f"{n}.py" for n in (
         "__init__", "distributed", "mesh", "pipeline")} <= set(files)
+    assert ROOT / "lz4net_tpu_torch" / "models" / "native.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -84,6 +85,46 @@ def test_every_kernel_has_its_source_and_entry():
         "lz4t_decode_sequencer_row_max", "lz4t_mark_chain",
         "lz4t_table_gather", "lz4t_lane_lookup", "lz4t_diag_gather"}
     assert all(n >= 0 for n in _counts())
+
+
+def test_the_host_library_is_the_ports_own():
+    """The native engine loads the library built from the port's copy of
+    the C++ oracle under ``lz4net_tpu_torch/_build/host-<digest>/``, never
+    the JAX package's ``lz4net_tpu/native/liblz4tpu.so``, and exports
+    only ``lz4h_`` symbols."""
+    from lz4net_tpu_torch.models import native
+    lib = native._load()
+    path = pathlib.Path(lib._name).resolve()
+    assert path.parent.parent == ROOT / "lz4net_tpu_torch" / "_build"
+    assert path.parent.name.startswith("host-")
+    assert path.name == "liblz4h.so"
+    assert ROOT / "lz4net_tpu" not in path.parents
+    assert pathlib.Path(native.SOURCE).resolve() == \
+        ROOT / "lz4net_tpu_torch" / "native" / "lz4_oracle.cpp"
+    assert all(n.startswith("lz4h_") for n in native.SIGNATURES)
+    for name in native.SIGNATURES:
+        getattr(lib, name)
+    with pytest.raises(AttributeError):
+        lib.lz4tpu_compress
+    assert "liblz4tpu" not in (ROOT / "lz4net_tpu_torch" / "models"
+                               / "native.py").read_text()
+
+
+def test_a_failed_host_build_raises(monkeypatch, tmp_path):
+    """No compiler, or a source it refuses: ``build`` raises
+    RuntimeError with the cause, and nothing is built."""
+    from lz4net_tpu_torch.models import native
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        native.build()
+    monkeypatch.delenv("CXX")
+    bad = tmp_path / "lz4_oracle.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", str(bad))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "_build"))
+    with pytest.raises(RuntimeError, match="(?s)cannot be built.*error: "):
+        native.build()
+    assert not list((tmp_path / "_build").rglob("*.so"))
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -20,7 +20,7 @@ torch.set_num_threads(1)   # the test workers share the cores: one intra-op
 
 from lz4net_tpu import registry as jregistry  # noqa: E402
 from lz4net_tpu_torch import codec, registry  # noqa: E402
-from lz4net_tpu_torch.models import service_adapters  # noqa: E402
+from lz4net_tpu_torch.models import reference, service_adapters  # noqa
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 CPU = "cpu"
@@ -47,8 +47,8 @@ def _write_cache(orders, key=CPU):
 
 def test_static_order_puts_the_card_engine_first():
     registry.initialize(force=True, device=CPU)
-    assert set(registry.available_services(CPU)) == {"cuda",
-                                                     "python-reference"}
+    assert set(registry.available_services(CPU)) == {
+        "cuda", "native", "python-reference"}
     for role in (registry.encoder, registry.decoder, registry.encoder_hc):
         assert role(CPU) is registry.service("cuda", CPU)
     assert registry.service("cuda", CPU).device == torch.device(CPU)
@@ -110,6 +110,58 @@ def test_the_jax_cache_is_never_read_or_written():
         assert fh.read() == jax_cache
     with open(registry._select_cache_path()) as fh:
         assert set(json.load(fh)[CPU]) == set(registry.ROLES)
+
+
+def test_native_engine_serves_the_cpu_only_when_measured_first():
+    """``native`` is registered on every device after its AutoTest; the
+    static order and the CPU's selection are unchanged, a CUDA device's
+    roles stay ``cuda`` whatever the order, and a measured order may put
+    ``native`` first on the CPU."""
+    registry.initialize(force=True, device=CPU)
+    svc = registry.available_services(CPU)["native"]
+    assert isinstance(svc, service_adapters.NativeService)
+    assert registry.auto_test(svc)
+    assert registry.ENGINES == ("cuda", "native", "python-reference")
+    assert registry.STATIC_ORDER == {r: registry.ENGINES
+                                     for r in registry.ROLES}
+    assert registry.CARD_ENGINES == ("cuda",)
+    assert codec.codec_name(device=CPU) == "cuda/cuda/cudaHC"
+    for key in ("cuda", "cuda:0"):
+        assert registry._eligible(torch.device(key)) == ("cuda",)
+    assert registry._eligible(torch.device(CPU)) == registry.ENGINES
+    native_first = {r: ["native", "cuda", "python-reference"]
+                    for r in registry.ROLES}
+    _write_cache(native_first, "cuda")
+    assert registry._preferences(torch.device("cuda")) == {
+        r: ("cuda",) for r in registry.ROLES}
+    _write_cache(native_first)
+    registry.initialize(force=True, device=CPU)
+    assert codec.codec_name(device=CPU) == "native/native/nativeHC"
+    packed = codec.encode(TEXT, device=CPU)
+    assert packed == reference.compress_block(TEXT)
+    assert codec.decode_batch([packed, packed], [len(TEXT)] * 2,
+                              device=CPU) == [TEXT, TEXT]
+    assert codec.encode_hc(TEXT, device=CPU) == \
+        reference.compress_block_hc(TEXT)
+    with pytest.raises(reference.CorruptedBlockError,
+                       match="^truncated input$"):
+        codec.decode_batch([packed, packed[:-9]], [len(TEXT)] * 2,
+                           device=CPU)
+
+
+def test_a_failing_native_engine_raises_instead_of_being_left_out(
+        monkeypatch):
+    monkeypatch.setattr(service_adapters.NativeService, "decode_unknown",
+                        lambda self, src, n: b"")
+    with pytest.raises(RuntimeError, match="native.*AutoTest.*differs"):
+        registry.initialize(force=True, device=CPU)
+    monkeypatch.undo()
+
+    def broken(self):
+        raise RuntimeError("the native engine cannot be built: g++ failed")
+    monkeypatch.setattr(service_adapters.NativeService, "__init__", broken)
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        registry.initialize(force=True, device=CPU)
 
 
 class _Stub:
