@@ -44,6 +44,7 @@ import torch
 from .. import _build
 from ..constants import COPYLENGTH, LASTLITERALS
 from ..models.reference import CorruptedBlockError
+from ..spans import span
 from .decode_vector import resolve_device
 
 MAX_COLS = (1 << 31) // 256   # C and D: 255-extended lengths stay in int32
@@ -175,30 +176,36 @@ class SequencerDecoder:
         self.device = resolve_device(device)
 
     def decode_batch(self, blocks, out_lens) -> list[bytes]:
-        blocks = [bytes(b) for b in blocks]
-        out_lens = list(out_lens)
-        if not blocks:
-            return []
-        C = max(max(map(len, blocks)), 1)
-        D = max(max(out_lens), 1)
-        comp = np.zeros((len(blocks), C), np.uint8)
-        for i, b in enumerate(blocks):
-            comp[i, :len(b)] = np.frombuffer(b, np.uint8)
-        dev = self.device
-        out, status = decode_sequencer(
-            torch.from_numpy(comp).to(dev),
-            torch.tensor([len(b) for b in blocks], dtype=torch.int32,
-                         device=dev),
-            torch.tensor(out_lens, dtype=torch.int32, device=dev), D)
-        status = status.cpu().numpy()
-        for i, (b, n) in enumerate(zip(blocks, out_lens)):
-            if int(status[i, 0]) != len(b) or int(status[i, 1]) != n:
-                raise CorruptedBlockError(
-                    f"sequencer decode status mismatch on block {i}: "
-                    f"read {int(status[i, 0])}/{len(b)}, "
-                    f"wrote {int(status[i, 1])}/{n}")
-        out = out.cpu().numpy()
-        return [out[i, :n].tobytes() for i, n in enumerate(out_lens)]
+        with span("lz4t.decode.batch"):
+            with span("lz4t.decode.layout"):
+                blocks = [bytes(b) for b in blocks]
+                out_lens = list(out_lens)
+                if not blocks:
+                    return []
+                C = max(max(map(len, blocks)), 1)
+                D = max(max(out_lens), 1)
+                comp = np.zeros((len(blocks), C), np.uint8)
+                for i, b in enumerate(blocks):
+                    comp[i, :len(b)] = np.frombuffer(b, np.uint8)
+            dev = self.device
+            with span("lz4t.decode.upload"):
+                comp = torch.from_numpy(comp).to(dev)
+                comp_len = torch.tensor([len(b) for b in blocks],
+                                        dtype=torch.int32, device=dev)
+                lens = torch.tensor(out_lens, dtype=torch.int32, device=dev)
+            with span("lz4t.decode.pass"):
+                out, status = decode_sequencer(comp, comp_len, lens, D)
+            with span("lz4t.decode.fetch"):
+                status = status.cpu().numpy()
+                out = out.cpu().numpy()
+            with span("lz4t.decode.unpack"):
+                for i, (b, n) in enumerate(zip(blocks, out_lens)):
+                    if int(status[i, 0]) != len(b) or int(status[i, 1]) != n:
+                        raise CorruptedBlockError(
+                            f"sequencer decode status mismatch on block {i}: "
+                            f"read {int(status[i, 0])}/{len(b)}, "
+                            f"wrote {int(status[i, 1])}/{n}")
+                return [out[i, :n].tobytes() for i, n in enumerate(out_lens)]
 
 
 _DECODERS: dict[torch.device, SequencerDecoder] = {}

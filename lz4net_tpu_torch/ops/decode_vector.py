@@ -54,6 +54,7 @@ import torch
 from ..constants import (COPYLENGTH, LASTLITERALS, MAX_DISTANCE_WINDOW,
                          MFLIMIT)
 from ..models import native, reference
+from ..spans import span
 from .bigblock import WINDOW, scan, split_fragments
 from .fused_gather import rowbase_gather
 from .parse_kernel import parse_tokens
@@ -233,22 +234,32 @@ class VectorDecoder:
         self.device = resolve_device(device)
         self.host_decodes = 0
 
-    def _pass(self, blocks, out_lens, dictionary=None):
-        """One device pass: (out [B, D] uint8, total, ok, strict, needed,
-        block ends [B, 4]) as numpy arrays."""
+    @staticmethod
+    def _layout(blocks, out_lens, dictionary=None):
+        """One device pass's rows on the host: (comp, comp_len, out_len,
+        C, D, pre, pre_len), the last two None without ``dictionary``."""
         comp, comp_len, out_len, C, D = pack_blocks(blocks, out_lens)
-        dev = batch_from_numpy(comp, comp_len, out_len, self.device)
         pre = pre_len = None
         if dictionary:
             pre, pre_len, _P = pack_windows(dictionary, len(blocks))
-            pre = torch.from_numpy(pre).to(self.device).to(torch.int32)
-            pre_len = torch.from_numpy(pre_len).to(self.device)
-        out, total, ok, strict, _consumed, needed, ends = \
-            device_pass(*dev, C, D, pre, pre_len)
-        # fetch bytes, not words
-        return (out.to(torch.uint8).cpu().numpy(), total.cpu().numpy(),
-                ok.cpu().numpy(), strict.cpu().numpy(), needed.cpu().numpy(),
-                ends.cpu().numpy())
+        return comp, comp_len, out_len, C, D, pre, pre_len
+
+    def _pass(self, comp, comp_len, out_len, C, D, pre, pre_len):
+        """One device pass over rows from ``_layout``: (out [B, D] uint8,
+        total, ok, strict, needed, block ends [B, 4]) as numpy arrays."""
+        with span("lz4t.decode.upload"):
+            dev = batch_from_numpy(comp, comp_len, out_len, self.device)
+            if pre is not None:
+                pre = torch.from_numpy(pre).to(self.device).to(torch.int32)
+                pre_len = torch.from_numpy(pre_len).to(self.device)
+        with span("lz4t.decode.pass"):
+            out, total, ok, strict, _consumed, needed, ends = \
+                device_pass(*dev, C, D, pre, pre_len)
+        with span("lz4t.decode.fetch"):
+            # fetch bytes, not words
+            return (out.to(torch.uint8).cpu().numpy(), total.cpu().numpy(),
+                    ok.cpu().numpy(), strict.cpu().numpy(),
+                    needed.cpu().numpy(), ends.cpu().numpy())
 
     def decode_batch(self, blocks, out_lens, dictionary=None):
         """The decoded blocks of known lengths ``out_lens``; with
@@ -257,50 +268,61 @@ class VectorDecoder:
         over 96 KB, compressed or decoded, go to ``_decode_big_many``
         where their header walk (``bigblock.scan``) gives their length
         and keeps the block-end rules, else to the host decoder."""
-        blocks = [bytes(b) for b in blocks]
-        out_lens = list(out_lens)
-        if not blocks:
-            return []
-        if isinstance(dictionary, (bytes, bytearray, memoryview)):
-            dictionary = [bytes(dictionary)] * len(blocks) if dictionary \
-                else None
-        big = [i for i, (b, n) in enumerate(zip(blocks, out_lens))
-               if len(b) > self.MAX_BLOCK or n > self.MAX_BLOCK]
-        bigs = set(big)
-        small = [i for i in range(len(blocks)) if i not in bigs]
-        results = [None] * len(blocks)
+        with span("lz4t.decode.batch"):
+            with span("lz4t.decode.layout"):
+                blocks = [bytes(b) for b in blocks]
+                out_lens = list(out_lens)
+                if not blocks:
+                    return []
+                if isinstance(dictionary, (bytes, bytearray, memoryview)):
+                    dictionary = ([bytes(dictionary)] * len(blocks)
+                                  if dictionary else None)
+                big = [i for i, (b, n) in enumerate(zip(blocks, out_lens))
+                       if len(b) > self.MAX_BLOCK or n > self.MAX_BLOCK]
+                bigs = set(big)
+                small = [i for i in range(len(blocks)) if i not in bigs]
+                results = [None] * len(blocks)
+                if small:
+                    lens = np.array([out_lens[i] for i in small], np.int64)
+                    laid = self._layout(
+                        [blocks[i] for i in small], lens.tolist(),
+                        [dictionary[i] for i in small] if dictionary
+                        else None)
 
-        def host(i):
-            self.host_decodes += 1
-            return (native.decompress_block_dict(
-                blocks[i], dictionary[i], out_lens[i]) if dictionary
-                else native.decompress_block(blocks[i], out_lens[i]))
+            def host(i):
+                self.host_decodes += 1
+                return (native.decompress_block_dict(
+                    blocks[i], dictionary[i], out_lens[i]) if dictionary
+                    else native.decompress_block(blocks[i], out_lens[i]))
 
-        if small:
-            lens = np.array([out_lens[i] for i in small], np.int64)
-            out, total, ok, strict, needed, ends = self._pass(
-                [blocks[i] for i in small], lens.tolist(),
-                [dictionary[i] for i in small] if dictionary else None)
-            accepted = known_certified(ok, total, strict, needed, ends, lens)
-            for j, i in enumerate(small):
-                if accepted[j]:
-                    results[i] = out[j, :lens[j]].tobytes()
-                else:
-                    results[i] = host(i)
-        walked = []
-        for i in big:
-            s = scan(blocks[i])
-            if (s is not None and s[2] == out_lens[i]
-                    and (s[4] is None or known_ends_ok(*s[4], out_lens[i]))):
-                walked.append((i, s))
-            else:
-                results[i] = host(i)
-        if walked:
-            self._decode_big_many(
-                [i for i, _ in walked], blocks, out_lens, results, host,
-                by_fragment=True, dictionary=dictionary,
-                scans=[s for _, s in walked])
-        return results
+            if small:
+                out, total, ok, strict, needed, ends = self._pass(*laid)
+                with span("lz4t.decode.unpack"):
+                    accepted = known_certified(ok, total, strict, needed,
+                                               ends, lens)
+                    for j, i in enumerate(small):
+                        if accepted[j]:
+                            results[i] = out[j, :lens[j]].tobytes()
+                        else:
+                            results[i] = host(i)
+            if not big:
+                return results
+            with span("lz4t.decode.layout"):
+                walked = []
+                for i in big:
+                    s = scan(blocks[i])
+                    if (s is not None and s[2] == out_lens[i]
+                            and (s[4] is None
+                                 or known_ends_ok(*s[4], out_lens[i]))):
+                        walked.append((i, s))
+                    else:
+                        results[i] = host(i)
+            if walked:
+                self._decode_big_many(
+                    [i for i, _ in walked], blocks, out_lens, results, host,
+                    by_fragment=True, dictionary=dictionary,
+                    scans=[s for _, s in walked])
+            return results
 
     def _decode_big_many(self, idx, blocks, out_lens, results, host,
                          by_fragment, dictionary=None, scans=None):
@@ -321,50 +343,55 @@ class VectorDecoder:
         by the caller, who has checked its path's block-end rules on it:
         fragments are not held to them."""
         frags, outs, heads = {}, {}, {}
-        for k, i in enumerate(idx):
-            f = split_fragments(blocks[i], out_lens[i], scans[k])
-            if f is None:
-                results[i] = host(i)
-                continue
-            frags[i] = f
-            outs[i] = bytearray()
-            heads[i] = (bytes(dictionary[i] or b"")[-WINDOW:]
-                        if dictionary else b"")
+        with span("lz4t.decode.layout"):
+            for k, i in enumerate(idx):
+                f = split_fragments(blocks[i], out_lens[i], scans[k])
+                if f is None:
+                    results[i] = host(i)
+                    continue
+                frags[i] = f
+                outs[i] = bytearray()
+                heads[i] = (bytes(dictionary[i] or b"")[-WINDOW:]
+                            if dictionary else b"")
         for w in range(max(map(len, frags.values()), default=0)):
             live = [i for i in frags if w < len(frags[i])]
             if not live:
                 break
-            fr = [frags[i][w][0] for i in live]
-            spans = [frags[i][w][2] for i in live]
-            windows = []
-            for i in live:
-                o0 = frags[i][w][1]
-                windows.append((heads[i] + bytes(outs[i]))[-WINDOW:]
-                               if o0 < WINDOW
-                               else bytes(outs[i][o0 - WINDOW:o0]))
-            out, total, ok, strict, needed, _ends = self._pass(
-                fr, spans, windows if any(windows) else None)
-            for j, i in enumerate(live):
-                n = spans[j]
-                if (bool(ok[j]) and int(total[j]) == n and bool(strict[j])
-                        and int(needed[j]) == n):
-                    outs[i] += out[j, :n].tobytes()
-                    continue
-                piece = None
-                if by_fragment:
-                    try:
-                        piece = native.decompress_fragment(
-                            fr[j], windows[j], n)
-                    except reference.CorruptedBlockError:
-                        pass
-                if piece is None:
-                    results[i] = host(i)
-                    del frags[i]
-                else:
-                    self.host_decodes += 1
-                    outs[i] += piece
-        for i in frags:
-            results[i] = bytes(outs[i])
+            with span("lz4t.decode.layout"):
+                fr = [frags[i][w][0] for i in live]
+                sizes = [frags[i][w][2] for i in live]
+                windows = []
+                for i in live:
+                    o0 = frags[i][w][1]
+                    windows.append((heads[i] + bytes(outs[i]))[-WINDOW:]
+                                   if o0 < WINDOW
+                                   else bytes(outs[i][o0 - WINDOW:o0]))
+                laid = self._layout(fr, sizes,
+                                    windows if any(windows) else None)
+            out, total, ok, strict, needed, _ends = self._pass(*laid)
+            with span("lz4t.decode.unpack"):
+                for j, i in enumerate(live):
+                    n = sizes[j]
+                    if (bool(ok[j]) and int(total[j]) == n
+                            and bool(strict[j]) and int(needed[j]) == n):
+                        outs[i] += out[j, :n].tobytes()
+                        continue
+                    piece = None
+                    if by_fragment:
+                        try:
+                            piece = native.decompress_fragment(
+                                fr[j], windows[j], n)
+                        except reference.CorruptedBlockError:
+                            pass
+                    if piece is None:
+                        results[i] = host(i)
+                        del frags[i]
+                    else:
+                        self.host_decodes += 1
+                        outs[i] += piece
+        with span("lz4t.decode.unpack"):
+            for i in frags:
+                results[i] = bytes(outs[i])
 
     def decode_batch_unknown(self, blocks, max_out_lens):
         """Unknown-output-length decode: each block's decoded bytes, at
@@ -386,48 +413,59 @@ class VectorDecoder:
         a fragment the card cannot certify, is decoded by the host's
         hardened decoder, which raises the reference's errors for
         malformed input."""
-        blocks = [bytes(b) for b in blocks]
-        caps = list(max_out_lens)
-        results = [None] * len(blocks)
+        with span("lz4t.decode.batch"):
+            with span("lz4t.decode.layout"):
+                blocks = [bytes(b) for b in blocks]
+                caps = list(max_out_lens)
+                results = [None] * len(blocks)
+                big = [i for i, b in enumerate(blocks)
+                       if len(b) > self.MAX_BLOCK]
+                live = [i for i, b in enumerate(blocks)
+                        if b and len(b) <= self.MAX_BLOCK]
+                if live:
+                    laid = self._layout(
+                        [blocks[i] for i in live],
+                        [min(caps[i], self.MAX_BLOCK) for i in live])
 
-        def host(i):
-            self.host_decodes += 1
-            return native.decompress_block_unknown(blocks[i], caps[i])
+            def host(i):
+                self.host_decodes += 1
+                return native.decompress_block_unknown(blocks[i], caps[i])
 
-        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
-        live = [i for i, b in enumerate(blocks)
-                if b and len(b) <= self.MAX_BLOCK]
-        if live:
-            out, total, ok, strict, needed, ends = self._pass(
-                [blocks[i] for i in live],
-                [min(caps[i], self.MAX_BLOCK) for i in live])
-            for j, i in enumerate(live):
-                n = int(needed[j])
-                if (bool(ok[j]) and bool(strict[j]) and n == int(total[j])
-                        and n <= caps[i]
-                        and unknown_ends_ok(ends[j], len(blocks[i]),
-                                            caps[i])):
-                    results[i] = out[j, :n].tobytes()
-                elif n > self.MAX_BLOCK and caps[i] > self.MAX_BLOCK:
-                    big.append(i)
-        walked = []
-        for i in big:
-            try:
-                n = native.unknown_output_length(blocks[i], caps[i])
-            except reference.CorruptedBlockError:
-                continue                 # the host decoder raises it
-            # the walks part only where the hardened one stops reading a
-            # match length 6 bytes before the end; scan then refuses the
-            # block or finds it longer: equal lengths, equal parses
-            s = scan(blocks[i])
-            if s is not None and s[2] == n:
-                walked.append((i, s))
-        if walked:
-            self._decode_big_many(
-                [i for i, _ in walked], blocks, {i: s[2] for i, s in walked},
-                results, host, by_fragment=False,
-                scans=[s for _, s in walked])
-        for i, r in enumerate(results):
-            if r is None:
-                results[i] = host(i)
-        return results
+            if live:
+                out, total, ok, strict, needed, ends = self._pass(*laid)
+                with span("lz4t.decode.unpack"):
+                    for j, i in enumerate(live):
+                        n = int(needed[j])
+                        if (bool(ok[j]) and bool(strict[j])
+                                and n == int(total[j]) and n <= caps[i]
+                                and unknown_ends_ok(ends[j], len(blocks[i]),
+                                                    caps[i])):
+                            results[i] = out[j, :n].tobytes()
+                        elif n > self.MAX_BLOCK and caps[i] > self.MAX_BLOCK:
+                            big.append(i)
+            walked = []
+            if big:
+                with span("lz4t.decode.layout"):
+                    for i in big:
+                        try:
+                            n = native.unknown_output_length(blocks[i],
+                                                             caps[i])
+                        except reference.CorruptedBlockError:
+                            continue         # the host decoder raises it
+                        # the walks part only where the hardened one stops
+                        # reading a match length 6 bytes before the end;
+                        # scan then refuses the block or finds it longer:
+                        # equal lengths, equal parses
+                        s = scan(blocks[i])
+                        if s is not None and s[2] == n:
+                            walked.append((i, s))
+            if walked:
+                self._decode_big_many(
+                    [i for i, _ in walked], blocks,
+                    {i: s[2] for i, s in walked}, results, host,
+                    by_fragment=False, scans=[s for _, s in walked])
+            with span("lz4t.decode.unpack"):
+                for i, r in enumerate(results):
+                    if r is None:
+                        results[i] = host(i)
+            return results

@@ -29,6 +29,7 @@ import torch
 from .. import _build
 from ..constants import maximum_output_length
 from ..models import reference
+from ..spans import span
 from .decode_vector import resolve_device
 
 MAX_COLS = (1 << 31) // 256   # S and O: block offsets stay inside int32
@@ -120,28 +121,36 @@ class SequencerEncoder:
         """Payloads byte-identical to the reference compressor's; b"" for
         a block whose payload would not fit its ``dst_maxlens`` entry
         (default: the worst-case bound)."""
-        blocks = [bytes(b) for b in blocks]
-        if not blocks:
-            return []
-        if dst_maxlens is None:
-            dst_maxlens = [maximum_output_length(len(b)) for b in blocks]
-        S = max(max(map(len, blocks)), 1)
-        # no payload exceeds the bound, whatever a block's own cap
-        O = max(min(max(dst_maxlens), maximum_output_length(S)), 1)
-        src = np.zeros((len(blocks), S), np.uint8)
-        for i, b in enumerate(blocks):
-            src[i, :len(b)] = np.frombuffer(b, np.uint8)
-        dev = self.device
-        out, written = encode_sequencer(
-            torch.from_numpy(src).to(dev),
-            torch.tensor([len(b) for b in blocks], dtype=torch.int32,
-                         device=dev),
-            torch.tensor(dst_maxlens, dtype=torch.int32, device=dev), O)
-        written = written.cpu().numpy()
-        # fetch only the columns a payload reaches
-        out = out[:, :max(int(written.max()), 1)].cpu().numpy()
-        return [out[i, :n].tobytes() if n > 0 else b""
-                for i, n in enumerate(written)]
+        with span("lz4t.encode.batch"):
+            with span("lz4t.encode.layout"):
+                blocks = [bytes(b) for b in blocks]
+                if not blocks:
+                    return []
+                if dst_maxlens is None:
+                    dst_maxlens = [maximum_output_length(len(b))
+                                   for b in blocks]
+                S = max(max(map(len, blocks)), 1)
+                # no payload exceeds the bound, whatever a block's own cap
+                O = max(min(max(dst_maxlens), maximum_output_length(S)), 1)
+                src = np.zeros((len(blocks), S), np.uint8)
+                for i, b in enumerate(blocks):
+                    src[i, :len(b)] = np.frombuffer(b, np.uint8)
+            dev = self.device
+            with span("lz4t.encode.upload"):
+                src = torch.from_numpy(src).to(dev)
+                src_len = torch.tensor([len(b) for b in blocks],
+                                       dtype=torch.int32, device=dev)
+                caps = torch.tensor(dst_maxlens, dtype=torch.int32,
+                                    device=dev)
+            with span("lz4t.encode.pass"):
+                out, written = encode_sequencer(src, src_len, caps, O)
+            with span("lz4t.encode.fetch"):
+                written = written.cpu().numpy()
+                # fetch only the columns a payload reaches
+                out = out[:, :max(int(written.max()), 1)].cpu().numpy()
+            with span("lz4t.encode.unpack"):
+                return [out[i, :n].tobytes() if n > 0 else b""
+                        for i, n in enumerate(written)]
 
 
 def compress_block(src: bytes, dst_maxlen: int | None = None,

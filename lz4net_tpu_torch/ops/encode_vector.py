@@ -77,6 +77,7 @@ from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
                          MFLIMIT, MINLENGTH, MINMATCH,
                          maximum_output_length)
 from ..models import native
+from ..spans import span
 from .decode_vector import CH, _cdiv, pack_windows, resolve_device
 from .bigblock import _synth_literals
 from .chain_kernel import mark_chain
@@ -598,16 +599,20 @@ class VectorEncoder:
                      hc_tiers):
         """``encode_batch_vectorized`` on rows laid out on the host:
         (out [B, O] uint8, out_len, ok, aux) as numpy arrays."""
-        # the bytes ship as uint8 and widen on the device
-        xt = torch.from_numpy(x).to(self.device).to(torch.int32)
-        out, out_len, ok, aux = encode_batch_vectorized(
-            xt, torch.from_numpy(lens).to(self.device), D, O, S_cap,
-            hc_rcap(lvl, D), lvl, hc_tiers, P,
-            None if pre_len is None
-            else torch.from_numpy(pre_len).to(self.device))
-        # fetch bytes, not words
-        return (out.to(torch.uint8).cpu().numpy(), out_len.cpu().numpy(),
-                ok.cpu().numpy(), aux.cpu().numpy())
+        with span("lz4t.encode.upload"):
+            # the bytes ship as uint8 and widen on the device
+            xt = torch.from_numpy(x).to(self.device).to(torch.int32)
+            lt = torch.from_numpy(lens).to(self.device)
+            pt = (None if pre_len is None
+                  else torch.from_numpy(pre_len).to(self.device))
+        with span("lz4t.encode.pass"):
+            out, out_len, ok, aux = encode_batch_vectorized(
+                xt, lt, D, O, S_cap, hc_rcap(lvl, D), lvl, hc_tiers, P, pt)
+        with span("lz4t.encode.fetch"):
+            # fetch bytes, not words
+            return (out.to(torch.uint8).cpu().numpy(),
+                    out_len.cpu().numpy(), ok.cpu().numpy(),
+                    aux.cpu().numpy())
 
     def encode_batch(self, blocks, dst_maxlens=None, hc_level=0,
                      dictionary=None, hc_tiers=None):
@@ -617,34 +622,39 @@ class VectorEncoder:
         ``dictionary`` enables preset-dictionary matching: its last 64 KB
         precede every block (P mode); decode needs the same bytes.
         Blocks over 96 KB encode as 64 KB segments (``_encode_big``)."""
-        blocks = [bytes(b) for b in blocks]
-        if not blocks:
-            return []
-        if dst_maxlens is None:
-            dst_maxlens = [maximum_output_length(len(b)) for b in blocks]
-        lvl = min(max(hc_level, 0), 9)
-        results = [b""] * len(blocks)      # an empty block encodes to b""
-        big = [i for i, b in enumerate(blocks) if len(b) > self.MAX_BLOCK]
-        if big:
-            self._encode_big(big, blocks, dst_maxlens, results, lvl,
-                             dictionary, hc_tiers)
-        todo = [i for i, b in enumerate(blocks)
-                if b and len(b) <= self.MAX_BLOCK]
-        if not todo:
+        with span("lz4t.encode.batch"):
+            with span("lz4t.encode.layout"):
+                blocks = [bytes(b) for b in blocks]
+                if not blocks:
+                    return []
+                if dst_maxlens is None:
+                    dst_maxlens = [maximum_output_length(len(b))
+                                   for b in blocks]
+                big = [i for i, b in enumerate(blocks)
+                       if len(b) > self.MAX_BLOCK]
+                todo = [i for i, b in enumerate(blocks)
+                        if b and len(b) <= self.MAX_BLOCK]
+                laid = (window_rows([blocks[i] for i in todo], dictionary)
+                        if todo else None)
+            lvl = min(max(hc_level, 0), 9)
+            results = [b""] * len(blocks)   # an empty block encodes to b""
+            if big:
+                self._encode_big(big, blocks, dst_maxlens, results, lvl,
+                                 dictionary, hc_tiers)
+            if not todo:
+                return results
+            out, out_len, ok, _aux = self._device_pass(*laid, lvl, hc_tiers)
+            with span("lz4t.encode.unpack"):
+                for j, i in enumerate(todo):
+                    if ok[j]:
+                        payload = out[j, :int(out_len[j])].tobytes()
+                    else:
+                        self.host_encodes += 1
+                        payload = self._host_encode(blocks[i], dst_maxlens[i],
+                                                    lvl, dictionary)
+                    results[i] = (payload if len(payload) <= dst_maxlens[i]
+                                  else b"")
             return results
-        x, lens, pre_len, P, D, O, S_cap = window_rows(
-            [blocks[i] for i in todo], dictionary)
-        out, out_len, ok, _aux = self._device_pass(
-            x, lens, pre_len, P, D, O, S_cap, lvl, hc_tiers)
-        for j, i in enumerate(todo):
-            if ok[j]:
-                payload = out[j, :int(out_len[j])].tobytes()
-            else:
-                self.host_encodes += 1
-                payload = self._host_encode(blocks[i], dst_maxlens[i], lvl,
-                                            dictionary)
-            results[i] = payload if len(payload) <= dst_maxlens[i] else b""
-        return results
 
     def _encode_big(self, idx, blocks, dst_maxlens, results, lvl,
                     dictionary, hc_tiers):
@@ -660,26 +670,28 @@ class VectorEncoder:
         segs = big_segments([blocks[i] for i in idx])
         ok, aux, payloads = [], [], []
         for r0 in range(0, len(segs), self.SEG_ROWS):
-            part = segs[r0:r0 + self.SEG_ROWS]
-            x, lens, pre_len, P, D, O, S_cap = segment_rows(
-                [blocks[i] for i in idx], part, dictionary)
-            o, ol, k, a = self._device_pass(x, lens, pre_len, P, D, O,
-                                            S_cap, lvl, hc_tiers)
-            payloads += [o[j, :n].tobytes() for j, n in enumerate(ol)]
-            ok += k.tolist()
-            aux += a.tolist()
-        j0 = 0
-        for i in idx:
-            rows = range(j0, j0 + -(-len(blocks[i]) // SEG_SIZE))
-            j0 = rows.stop
-            if all(ok[j] for j in rows):
-                payload = self._merge_segments(
-                    blocks[i], [(payloads[j], aux[j]) for j in rows])
-            else:
-                self.host_encodes += 1
-                payload = self._host_encode(blocks[i], dst_maxlens[i], lvl,
-                                            dictionary)
-            results[i] = payload if len(payload) <= dst_maxlens[i] else b""
+            with span("lz4t.encode.layout"):
+                laid = segment_rows([blocks[i] for i in idx],
+                                    segs[r0:r0 + self.SEG_ROWS], dictionary)
+            o, ol, k, a = self._device_pass(*laid, lvl, hc_tiers)
+            with span("lz4t.encode.unpack"):
+                payloads += [o[j, :n].tobytes() for j, n in enumerate(ol)]
+                ok += k.tolist()
+                aux += a.tolist()
+        with span("lz4t.encode.unpack"):
+            j0 = 0
+            for i in idx:
+                rows = range(j0, j0 + -(-len(blocks[i]) // SEG_SIZE))
+                j0 = rows.stop
+                if all(ok[j] for j in rows):
+                    payload = self._merge_segments(
+                        blocks[i], [(payloads[j], aux[j]) for j in rows])
+                else:
+                    self.host_encodes += 1
+                    payload = self._host_encode(blocks[i], dst_maxlens[i],
+                                                lvl, dictionary)
+                results[i] = (payload if len(payload) <= dst_maxlens[i]
+                              else b"")
 
     @staticmethod
     def _merge_segments(block, parts):

@@ -31,6 +31,7 @@ from typing import BinaryIO
 from . import codec
 from .constants import (CHUNK_COMPRESSED, CHUNK_HIGH_COMPRESSION,
                         DEFAULT_BLOCK_SIZE, HC_LEVEL_DEFAULT, MIN_BLOCK_SIZE)
+from .spans import span
 
 
 class LZ4StreamMode(enum.Enum):
@@ -146,39 +147,44 @@ class LZ4Stream(io.RawIOBase):
     def _flush_current_chunk(self) -> None:
         if not self._buffer:
             return
-        raw = bytes(self._buffer)
-        # compressed into a budget of len(raw) bytes: "did not fit" or
-        # "did not shrink" means the chunk is stored raw
-        packed = (codec.encode_hc(raw, len(raw), self._hc_level,
-                                  device=self._device)
-                  if self._high_compression
-                  else codec.encode(raw, len(raw), device=self._device))
-        compressed = bool(packed) and len(packed) < len(raw)
+        with span("lz4t.stream.chunk"):
+            with span("lz4t.stream.frame"):
+                raw = bytes(self._buffer)
+            # compressed into a budget of len(raw) bytes: "did not fit" or
+            # "did not shrink" means the chunk is stored raw
+            packed = (codec.encode_hc(raw, len(raw), self._hc_level,
+                                      device=self._device)
+                      if self._high_compression
+                      else codec.encode(raw, len(raw), device=self._device))
+            with span("lz4t.stream.frame"):
+                compressed = bool(packed) and len(packed) < len(raw)
 
-        flags = 0
-        if compressed:
-            flags |= CHUNK_COMPRESSED
-        if self._high_compression:
-            flags |= CHUNK_HIGH_COMPRESSION
+                flags = 0
+                if compressed:
+                    flags |= CHUNK_COMPRESSED
+                if self._high_compression:
+                    flags |= CHUNK_HIGH_COMPRESSION
 
-        write_varint(self._inner, flags)
-        write_varint(self._inner, len(raw))
-        if compressed:
-            write_varint(self._inner, len(packed))
-            self._inner.write(packed)
-        else:
-            self._inner.write(raw)
-        self._buffer.clear()
+                write_varint(self._inner, flags)
+                write_varint(self._inner, len(raw))
+                if compressed:
+                    write_varint(self._inner, len(packed))
+                    self._inner.write(packed)
+                else:
+                    self._inner.write(raw)
+                self._buffer.clear()
 
     def write(self, data) -> int:
         if not self.writable():
             raise io.UnsupportedOperation("write")
-        data = bytes(data)
-        view = memoryview(data)
+        with span("lz4t.stream.frame"):
+            data = bytes(data)
+            view = memoryview(data)
         while view:
-            take = min(self._block_size - len(self._buffer), len(view))
-            self._buffer += view[:take]
-            view = view[take:]
+            with span("lz4t.stream.frame"):
+                take = min(self._block_size - len(self._buffer), len(view))
+                self._buffer += view[:take]
+                view = view[take:]
             if len(self._buffer) >= self._block_size:
                 self._flush_current_chunk()
         return len(data)
@@ -207,6 +213,35 @@ class LZ4Stream(io.RawIOBase):
             raise EndOfStreamError("truncated chunk payload")
         return flags, original_length, payload
 
+    def _read_records(self, want: int | None) -> list:
+        """The chunk records of one read-ahead: as many as ``want`` bytes
+        span, at most ``read_ahead_chunks`` (all of them for None).  An
+        error met after the first record is kept in ``_pending_error``."""
+        records = []
+        got = 0
+        while want is None or got < want or not records:
+            try:
+                rec = self._read_chunk_record()
+            except (EndOfStreamError, NotImplementedError) as exc:
+                if not records:
+                    raise
+                self._pending_error = exc   # raised when reached
+                break
+            if rec is None:
+                break
+            if (rec[0] & CHUNK_COMPRESSED) and rec[0] >> 2:
+                exc = NotImplementedError(
+                    "Chunks with multiple passes are not supported.")
+                if not records:
+                    raise exc
+                self._pending_error = exc
+                break
+            records.append(rec)
+            got += rec[1]
+            if want is not None and len(records) >= self._read_ahead:
+                break
+        return records
+
     def _acquire_next_chunk(self, want: int | None = None) -> bool:
         """Make the next decoded chunk current; False at a clean EOF.
 
@@ -230,42 +265,23 @@ class LZ4Stream(io.RawIOBase):
                 err, self._pending_error = self._pending_error, None
                 raise err
 
-            records = []
-            got = 0
-            while want is None or got < want or not records:
-                try:
-                    rec = self._read_chunk_record()
-                except (EndOfStreamError, NotImplementedError) as exc:
-                    if not records:
-                        raise
-                    self._pending_error = exc   # raised when reached
-                    break
-                if rec is None:
-                    break
-                if (rec[0] & CHUNK_COMPRESSED) and rec[0] >> 2:
-                    exc = NotImplementedError(
-                        "Chunks with multiple passes are not supported.")
-                    if not records:
-                        raise exc
-                    self._pending_error = exc
-                    break
-                records.append(rec)
-                got += rec[1]
-                if want is not None and len(records) >= self._read_ahead:
-                    break
-            if not records:
-                return False
+            with span("lz4t.stream.chunk"):
+                with span("lz4t.stream.frame"):
+                    records = self._read_records(want)
+                if not records:
+                    return False
 
-            packed_idx = [i for i, (f, n, _p) in enumerate(records)
-                          if (f & CHUNK_COMPRESSED) and n > 0]
-            decoded = codec.decode_batch(
-                [records[i][2] for i in packed_idx],
-                [records[i][1] for i in packed_idx],
-                device=self._device) if packed_idx else []
-            results = dict(zip(packed_idx, decoded))
-            for i, (_f, _n, payload) in enumerate(records):
-                self._decoded_queue.append(
-                    bytearray(results.get(i, payload)))
+                packed_idx = [i for i, (f, n, _p) in enumerate(records)
+                              if (f & CHUNK_COMPRESSED) and n > 0]
+                decoded = codec.decode_batch(
+                    [records[i][2] for i in packed_idx],
+                    [records[i][1] for i in packed_idx],
+                    device=self._device) if packed_idx else []
+                with span("lz4t.stream.frame"):
+                    results = dict(zip(packed_idx, decoded))
+                    for i, (_f, _n, payload) in enumerate(records):
+                        self._decoded_queue.append(
+                            bytearray(results.get(i, payload)))
 
     def read(self, size: int = -1) -> bytes:
         if not self.readable():
@@ -274,26 +290,30 @@ class LZ4Stream(io.RawIOBase):
         if size is None or size < 0:
             while True:
                 if len(self._buffer) > self._buffer_offset:
-                    out += self._buffer[self._buffer_offset:]
-                    self._buffer_offset = len(self._buffer)
+                    with span("lz4t.stream.frame"):
+                        out += self._buffer[self._buffer_offset:]
+                        self._buffer_offset = len(self._buffer)
                 elif not self._acquire_next_chunk(None):
                     break
-            return bytes(out)
+            with span("lz4t.stream.frame"):
+                return bytes(out)
 
         remaining = size
         while remaining > 0:
             avail = len(self._buffer) - self._buffer_offset
             if avail > 0:
                 take = min(avail, remaining)
-                out += self._buffer[self._buffer_offset:
-                                    self._buffer_offset + take]
+                with span("lz4t.stream.frame"):
+                    out += self._buffer[self._buffer_offset:
+                                        self._buffer_offset + take]
                 self._buffer_offset += take
                 remaining -= take
                 if self._interactive:
                     break       # return whatever is available at once
             elif not self._acquire_next_chunk(remaining):
                 break
-        return bytes(out)
+        with span("lz4t.stream.frame"):
+            return bytes(out)
 
     def readinto(self, b) -> int:
         data = self.read(len(b))
@@ -325,7 +345,8 @@ def compress_stream(data: bytes, *, high_compression: bool = False,
     with LZ4Stream(sink, LZ4StreamMode.COMPRESS, flags, block_size,
                    hc_level, device=device) as stream:
         stream.write(data)
-    return sink.getvalue()
+    with span("lz4t.stream.frame"):
+        return sink.getvalue()
 
 
 def decompress_stream(data: bytes, *, device="cuda") -> bytes:
