@@ -215,7 +215,8 @@
 25. the stream cell: codec_name() must be "cuda/cuda/cudaHC"; the 16 MB
    through lz4net_tpu_torch.stream at 1 MB chunks (16) and at 64 KB
    (256): frames equal to those built from models.reference.
-   compress_block, one encode_sequencer launch a chunk; a read-all
+   compress_block, one encode_sequencer launch a write's batch of chunks
+   (the whole 16 MB in one); a read-all
    (decompress_stream: one codec.decode_batch call for every chunk) and
    1 MB read() calls (a call for each 1 MB of chunks), byte-exact with no
    host re-decode, the decode kernels launched as those calls imply (a
@@ -2124,9 +2125,11 @@ def stream_phases(torch, card, rows, data, blocks, packed):
             if framed != want:
                 fail(f"stream at {chunk}-byte chunks: the frames differ "
                      f"from those of reference.compress_block")
-            if launches["encode_sequencer"] != k:
+            batches = -(-k // max(1, lz.BATCH_BYTES // chunk))
+            if launches["encode_sequencer"] != batches:
                 fail(f"stream write at {chunk}-byte chunks: launches "
-                     f"{launches}, one encode_sequencer a chunk expected")
+                     f"{launches}, one encode_sequencer a batch of chunks "
+                     f"({batches}) expected")
             # what the reads imply: a read-all decodes every compressed
             # chunk in one decode_batch call, 1 MB reads a call for each
             # 1 MB of chunks (`want` stops the read-ahead); a call makes a

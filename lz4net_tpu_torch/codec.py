@@ -2,7 +2,9 @@
 ``codec_name``, :19-21, strict and fast encode, :33-66, fast-HC and
 strict HC encode, :69-101, decode of known, unknown and
 preset-dictionary length, :104-132, batched decode, :135-157, and the
-8-byte wrap envelope, :160-200).  The strict paths and decode go through
+8-byte wrap envelope, :160-200), and ``encode_batch``, the write-side twin
+of ``decode_batch`` that the stream's writes call (the JAX package's
+stream encodes a chunk a call).  The strict paths and decode go through
 the engines ``registry`` selected for the device; the fast modes run the
 card's vector encoder directly, as the JAX package's run its TPU engine
 directly.
@@ -62,6 +64,22 @@ def encode(src: bytes, dst_maxlen: int | None = None, *,
     if mode == "strict":
         return registry.encoder(device).encode(bytes(src), dst_maxlen)
     return cuda.compress_blocks_fast([bytes(src)], [dst_maxlen], device)[0]
+
+
+def encode_batch(blocks, dst_maxlens, device="cuda") -> list:
+    """Batched strict encode of independent blocks: one device pass on the
+    ``cuda`` engine (the stream's write path).  Each payload is what
+    ``encode(block, cap)`` returns: b"" for an empty block, or for one
+    whose payload would not fit its ``dst_maxlens`` entry."""
+    blocks = [bytes(b) for b in blocks]
+    dst_maxlens = list(dst_maxlens)
+    nonempty = [i for i, b in enumerate(blocks) if b]
+    results = [b""] * len(blocks)
+    sub = registry.encoder(device).encode_batch(
+        [blocks[i] for i in nonempty], [dst_maxlens[i] for i in nonempty])
+    for i, r in zip(nonempty, sub):
+        results[i] = r
+    return results
 
 
 def encode_hc(src: bytes, dst_maxlen: int | None = None,

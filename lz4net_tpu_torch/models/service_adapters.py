@@ -40,6 +40,10 @@ class PythonReferenceService:
         return [reference.decompress_block(b, n)
                 for b, n in zip(blocks, output_lengths)]
 
+    def encode_batch(self, blocks, dst_maxlens):
+        """A block at a time."""
+        return [self.encode(b, n) for b, n in zip(blocks, dst_maxlens)]
+
 
 class NativeService:
     """The native host engine (``models.native``), the port's copy of the
@@ -83,6 +87,10 @@ class NativeService:
         ends = np.cumsum([0] + out_lengths)
         return [concat[a:b] for a, b in zip(ends[:-1], ends[1:])]
 
+    def encode_batch(self, blocks, dst_maxlens):
+        """A block at a time."""
+        return [self.encode(b, n) for b, n in zip(blocks, dst_maxlens)]
+
 
 class CudaService:
     """Batched CUDA engine over independent blocks."""
@@ -119,3 +127,8 @@ class CudaService:
         """One device pass for the whole batch."""
         return cuda.decompress_blocks(list(blocks), list(output_lengths),
                                       self.device)
+
+    def encode_batch(self, blocks, dst_maxlens):
+        """Strict encode, one launch for the whole batch."""
+        return cuda.compress_blocks(list(blocks), list(dst_maxlens),
+                                    self.device)

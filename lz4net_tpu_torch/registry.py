@@ -85,6 +85,10 @@ class Lz4Service(Protocol):
     def decode_batch(self, blocks, output_lengths) -> list:
         """Known-output-length decode of independent blocks."""
 
+    def encode_batch(self, blocks, dst_maxlens) -> list:
+        """Greedy LZ4 of independent non-empty blocks, each payload what
+        ``encode`` returns for it under its ``dst_maxlens`` entry."""
+
 
 @dataclass
 class _Registry:

@@ -15,23 +15,34 @@ Varints are little-endian base-128 with 0x80 continuation
 (`LZ4Stream.cs:167-187,225-236`).  A chunk whose compressed form is not
 strictly smaller than the original is stored raw (`LZ4Stream.cs:248-255`).
 
-Writes encode each chunk through ``codec.encode`` (strict, the reference
-compressor's bytes, on the card) or ``codec.encode_hc`` (strict HC, the
-reference HC parse on the native host engine).  Reads batch the chunk records they
-read ahead into one ``codec.decode_batch`` call, the port's main decode
-path.  Every entry point takes ``device=``, the card by default.
+Writes batch the chunks that one ``write()`` completes into one
+``codec.encode_batch`` call (strict, the reference compressor's bytes, one
+launch on the card), at most ``BATCH_BYTES`` of input a call, and frame
+them before the call returns; ``flush()`` and ``close()`` encode the
+pending chunk alone.  Strict HC encodes each chunk through
+``codec.encode_hc`` (the reference HC parse on the native host engine).
+Reads batch the chunk records they read ahead into one
+``codec.decode_batch`` call, the port's main decode path.  Every entry
+point takes ``device=``, the card by default.
 """
 
 from __future__ import annotations
 
 import enum
 import io
+import itertools
 from typing import BinaryIO
 
 from . import codec
 from .constants import (CHUNK_COMPRESSED, CHUNK_HIGH_COMPRESSION,
                         DEFAULT_BLOCK_SIZE, HC_LEVEL_DEFAULT, MIN_BLOCK_SIZE)
 from .spans import span
+
+# the most input one encode call of a write takes, so that a write of any
+# size stages at most this much on the host and the card at a time: 64
+# chunks of 1 MB (a CTA each, fewer than the H100's 132 SMs), 1,024 of
+# 64 KB
+BATCH_BYTES = 64 << 20
 
 
 class LZ4StreamMode(enum.Enum):
@@ -144,49 +155,69 @@ class LZ4Stream(io.RawIOBase):
 
     # --- write path -------------------------------------------------------
 
-    def _flush_current_chunk(self) -> None:
-        if not self._buffer:
-            return
+    def _write_chunks(self, chunks) -> None:
+        """Encode ``chunks`` in one ``codec.encode_batch`` call (strict
+        HC: one ``codec.encode_hc`` a chunk) and frame them in order."""
         with span("lz4t.stream.chunk"):
             with span("lz4t.stream.frame"):
-                raw = bytes(self._buffer)
-            # compressed into a budget of len(raw) bytes: "did not fit" or
-            # "did not shrink" means the chunk is stored raw
-            packed = (codec.encode_hc(raw, len(raw), self._hc_level,
-                                      device=self._device)
-                      if self._high_compression
-                      else codec.encode(raw, len(raw), device=self._device))
+                raws = [bytes(c) for c in chunks]
+            # each compressed into a budget of len(raw) bytes: "did not
+            # fit" or "did not shrink" means the chunk is stored raw
+            if self._high_compression:
+                packed = [codec.encode_hc(raw, len(raw), self._hc_level,
+                                          device=self._device)
+                          for raw in raws]
+            else:
+                packed = codec.encode_batch(raws, [len(r) for r in raws],
+                                            device=self._device)
             with span("lz4t.stream.frame"):
-                compressed = bool(packed) and len(packed) < len(raw)
+                for raw, payload in zip(raws, packed):
+                    compressed = bool(payload) and len(payload) < len(raw)
 
-                flags = 0
-                if compressed:
-                    flags |= CHUNK_COMPRESSED
-                if self._high_compression:
-                    flags |= CHUNK_HIGH_COMPRESSION
+                    flags = 0
+                    if compressed:
+                        flags |= CHUNK_COMPRESSED
+                    if self._high_compression:
+                        flags |= CHUNK_HIGH_COMPRESSION
 
-                write_varint(self._inner, flags)
-                write_varint(self._inner, len(raw))
-                if compressed:
-                    write_varint(self._inner, len(packed))
-                    self._inner.write(packed)
-                else:
-                    self._inner.write(raw)
-                self._buffer.clear()
+                    write_varint(self._inner, flags)
+                    write_varint(self._inner, len(raw))
+                    if compressed:
+                        write_varint(self._inner, len(payload))
+                        self._inner.write(payload)
+                    else:
+                        self._inner.write(raw)
+
+    def _flush_current_chunk(self) -> None:
+        if self._buffer:
+            self._write_chunks([self._buffer])
+            self._buffer.clear()
 
     def write(self, data) -> int:
+        """Frame every chunk that the pending bytes and ``data`` complete
+        before returning, in batches of at most ``BATCH_BYTES``; the rest
+        stays pending."""
         if not self.writable():
             raise io.UnsupportedOperation("write")
+        size = self._block_size
         with span("lz4t.stream.frame"):
             data = bytes(data)
             view = memoryview(data)
-        while view:
-            with span("lz4t.stream.frame"):
-                take = min(self._block_size - len(self._buffer), len(view))
+            head = []
+            if self._buffer:    # the head of data completes the pending chunk
+                take = min(size - len(self._buffer), len(view))
                 self._buffer += view[:take]
                 view = view[take:]
-            if len(self._buffer) >= self._block_size:
-                self._flush_current_chunk()
+                if len(self._buffer) == size:
+                    head, self._buffer = [self._buffer], bytearray()
+            whole = len(view) - len(view) % size
+        chunks = itertools.chain(head, (view[i:i + size]
+                                        for i in range(0, whole, size)))
+        per_batch = max(1, BATCH_BYTES // size)
+        while batch := list(itertools.islice(chunks, per_batch)):
+            self._write_chunks(batch)
+        with span("lz4t.stream.frame"):
+            self._buffer += view[whole:]
         return len(data)
 
     def flush(self) -> None:

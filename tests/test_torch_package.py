@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 from lz4net_tpu_torch import __main__ as cli  # noqa: E402
 from lz4net_tpu_torch import codec, registry, stream  # noqa: E402
 from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
-from lz4net_tpu_torch.models import reference  # noqa: E402
+from lz4net_tpu_torch.models import native, reference  # noqa: E402
 from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
@@ -735,6 +735,29 @@ def test_stream_and_block_end_rules_on_the_card(cuda, blocks):
             assert outcome(lambda: dec.decode_batch_unknown(
                 [blk], [cap])[0]) == outcome(
                 lambda: reference.decompress_block_unknown(blk, cap)), name
+
+
+@pytest.mark.gpu
+def test_stream_write_makes_one_launch_a_write_on_the_card(cuda):
+    """An 8 MB write at 1 MB chunks encodes its 8 chunks in one
+    ``encode_sequencer`` launch, and its frames hold the reference
+    compressor's payloads (the native host engine's)."""
+    data = corpus.silesia_like(8 << 20, seed=31)
+    chunk = 1 << 20
+    codec.codec_name(device=cuda)           # the AutoTest's launches first
+    before = es.launches
+    framed = stream.compress_stream(data, block_size=chunk, device=cuda)
+    assert es.launches == before + 1
+    want = io.BytesIO()
+    for i in range(0, len(data), chunk):
+        raw = data[i:i + chunk]
+        packed = native.compress_block(raw, len(raw))
+        assert 0 < len(packed) < len(raw)
+        for v in (1, len(raw), len(packed)):   # flags: compressed
+            stream.write_varint(want, v)
+        want.write(packed)
+    assert framed == want.getvalue()
+    assert stream.decompress_stream(framed, device=cuda) == data
 
 
 @pytest.mark.gpu

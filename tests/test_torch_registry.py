@@ -12,6 +12,7 @@ import os
 import re
 import time
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -53,6 +54,32 @@ def test_static_order_puts_the_card_engine_first():
         assert role(CPU) is registry.service("cuda", CPU)
     assert registry.service("cuda", CPU).device == torch.device(CPU)
     assert codec.codec_name(device=CPU) == "cuda/cuda/cudaHC"
+
+
+@pytest.mark.parametrize("name", registry.ENGINES)
+def test_encode_batch_gives_encode_payloads_on_every_engine(name):
+    """Each CPU engine's ``encode_batch`` gives its ``encode`` payloads
+    block by block, and ``codec.encode_batch`` through that engine gives
+    ``codec.encode``'s: b"" for an empty block and for a block whose
+    payload overflows its cap."""
+    noise = np.random.default_rng(5).integers(0, 256, 3000,
+                                              np.uint8).tobytes()
+    blocks = [TEXT[:2500], noise, TEXT[2500:], TEXT[:400], b"z" * 30]
+    caps = [2500, len(noise), 6000, 10, 64]   # the noise and 400 B overflow
+    _write_cache({role: [name] for role in registry.ROLES})
+    registry.initialize(force=True, device=CPU)
+    svc = registry.service(name, CPU)
+    assert registry.encoder(CPU) is svc
+    got = svc.encode_batch(blocks, caps)
+    assert got == [svc.encode(b, c) for b, c in zip(blocks, caps)]
+    assert [bool(p) for p in got] == [True, False, True, False, True]
+    assert got[0] == reference.compress_block(blocks[0], caps[0])
+    assert svc.encode_batch([], []) == []
+    blocks.insert(2, b"")
+    caps.insert(2, 16)
+    want = [codec.encode(b, c, device=CPU) for b, c in zip(blocks, caps)]
+    assert codec.encode_batch(blocks, caps, device=CPU) == want
+    assert want[2] == b"" and want[:2] + want[3:] == got
 
 
 def test_measured_cache_overrides_the_static_order(monkeypatch):

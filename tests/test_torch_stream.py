@@ -8,7 +8,13 @@ against the JAX package's (``lz4net_tpu.stream``): the counterpart of
 * the varints, raw storage of incompressible chunks, small writes and
   one-byte reads, interactive reads (from a buffer and over a socket
   pair with stalls), truncated frames and multiple-pass chunks;
-* the read-ahead: one ``codec.decode_batch`` call a batch of chunks.
+* the read-ahead: one ``codec.decode_batch`` call a batch of chunks;
+* the batched write: frames byte-identical to the JAX package's for
+  whole chunks and a tail in one write, a write that completes a pending
+  chunk, many small writes, an incompressible chunk inside a batch, a
+  flush between writes, more chunks than one batch holds and strict HC;
+  one ``codec.encode_batch`` call a write's batch, its frames in the
+  inner stream when the write returns.
 """
 
 import io
@@ -24,7 +30,7 @@ torch.set_num_threads(1)   # the test workers share the cores: one intra-op
                            # thread each, or they spin against each other
 
 from lz4net_tpu import stream as jstream  # noqa: E402
-from lz4net_tpu_torch import codec  # noqa: E402
+from lz4net_tpu_torch import codec, stream  # noqa: E402
 from lz4net_tpu_torch.stream import (EndOfStreamError,  # noqa: E402
                                      LZ4Stream, LZ4StreamFlags,
                                      LZ4StreamMode, compress_stream,
@@ -58,6 +64,61 @@ def test_frames_equal_jax(block, hc):
     assert len(mine) < len(data) or block == 16
     assert decompress_stream(theirs, device="cpu") == data
     assert jstream.decompress_stream(mine) == data
+
+
+def _written(mod, writes, block, hc=False, **kw):
+    """The frames of ``mod``'s (either package's stream module) LZ4Stream
+    after the ``writes`` (bytes, or None for a ``flush()``) and
+    ``close()``."""
+    sink = io.BytesIO()
+    flags = mod.LZ4StreamFlags.ISOLATE_INNER_STREAM | (
+        mod.LZ4StreamFlags.HIGH_COMPRESSION if hc else 0)
+    out = mod.LZ4Stream(sink, mod.LZ4StreamMode.COMPRESS, flags,
+                        block_size=block, **kw)
+    for piece in writes:
+        if piece is None:
+            out.flush()
+        else:
+            assert out.write(piece) == len(piece)
+    out.close()
+    return sink.getvalue()
+
+
+def _pieces(data, cuts):
+    return [data[a:b] for a, b in zip([0] + cuts, cuts + [len(data)])]
+
+
+B = 2048
+NOISE = _noise(B, seed=8)
+# (writes, chunk size, HC, batch bound or None), each against the JAX
+# package's LZ4Stream fed the same writes
+WRITE_PATTERNS = {
+    "whole_chunks_and_a_tail": ([DATA[:5 * B + 700]], B, False, None),
+    "completes_a_pending_chunk": (
+        _pieces(DATA[:6 * B + 300], [900, 4 * B + 100]), B, False, None),
+    "many_small_writes": (
+        _pieces(DATA[:4 * B + 50], list(range(333, 4 * B, 333))), B, False,
+        None),
+    "incompressible_chunk_mid_batch": (
+        [DATA[:2 * B] + NOISE + DATA[2 * B:3 * B + 10]], B, False, None),
+    "flush_between_writes": (
+        [DATA[:B + 500], None, DATA[B + 500:4 * B]], B, False, None),
+    "more_chunks_than_a_batch": ([DATA[:11 * B + 99]], B, False, 3 * B),
+    "high_compression": (
+        _pieces(DATA[:5 * B + 40], [700, 3 * B]), B, True, None),
+}
+
+
+@pytest.mark.parametrize("pattern", list(WRITE_PATTERNS))
+def test_write_patterns_equal_jax(pattern, monkeypatch):
+    writes, block, hc, bound = WRITE_PATTERNS[pattern]
+    if bound is not None:
+        monkeypatch.setattr(stream, "BATCH_BYTES", bound)
+    mine = _written(stream, writes, block, hc, device="cpu")
+    assert mine == _written(jstream, writes, block, hc)
+    data = b"".join(w for w in writes if w is not None)
+    assert decompress_stream(mine, device="cpu") == data
+    assert (NOISE in mine) == (pattern == "incompressible_chunk_mid_batch")
 
 
 @pytest.mark.parametrize("value", [0, 1, 127, 128, 300, 16383, 16384,
@@ -225,3 +286,45 @@ def test_read_ahead_makes_one_decode_batch_call_a_batch(monkeypatch):
                        read_ahead_chunks=3, device="cpu")
     assert stream.read(len(data)) == data
     assert calls == [3] * (n_chunks // 3) + [n_chunks % 3]
+
+
+def test_write_makes_one_encode_batch_call_a_batch(monkeypatch):
+    """A write encodes the chunks it completes in one ``codec.encode_batch``
+    call (at most ``BATCH_BYTES`` a call), and its frames are in the inner
+    stream when it returns; the tail waits for ``close()``."""
+    block = 4 * KB
+    data = DATA[:10 * block + 1500]
+    calls = []
+    real = codec.encode_batch
+
+    def counting(blocks, caps, device="cuda"):
+        calls.append(len(blocks))
+        return real(blocks, caps, device=device)
+
+    monkeypatch.setattr(codec, "encode_batch", counting)
+
+    def run(cuts, want):
+        calls.clear()
+        sink = io.BytesIO()
+        out = LZ4Stream(sink, LZ4StreamMode.COMPRESS,
+                        LZ4StreamFlags.ISOLATE_INNER_STREAM,
+                        block_size=block, device="cpu")
+        done = 0
+        for piece in _pieces(data, cuts):
+            out.write(piece)
+            done += len(piece)
+            whole = done - done % block
+            assert decompress_stream(sink.getvalue(), device="cpu") \
+                == data[:whole]
+        out.close()
+        assert calls == want
+        assert sink.getvalue() == jstream.compress_stream(data,
+                                                          block_size=block)
+
+    run([], [10, 1])
+    # 1,000 pending; 5 completed (the pending one first); 300 pending; 5
+    run([1000, 5 * block + 200, 5 * block + 300], [5, 5, 1])
+    monkeypatch.setattr(stream, "BATCH_BYTES", 4 * block)
+    run([], [4, 4, 2, 1])
+    monkeypatch.setattr(stream, "BATCH_BYTES", block // 2)   # one a call
+    run([3 * block], [1] * 10 + [1])
