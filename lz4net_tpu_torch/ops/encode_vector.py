@@ -65,10 +65,15 @@ LZ4 that any decoder reads, not the reference compressor's parse.  A
 block the device flags goes to the host compressor, the native host
 engine (``models.native.compress_block``, or ``compress_block_hc`` for
 HC, and their ``_dict`` forms with a dictionary);
-``VectorEncoder.host_encodes`` counts those blocks.
+``VectorEncoder.host_encodes`` counts those blocks, and
+``VectorEncoder.window_bytes`` the window positions its passes lay into
+rows (B x P a pass; a ``lz4t.encode.window`` span around each laying).
 """
 
 from __future__ import annotations
+
+import threading
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -520,25 +525,54 @@ def batch_shapes(max_len: int, P: int = 0):
     return D, O, S_cap
 
 
-def window_rows(blocks, dictionary=None):
+def window_rows(blocks, dictionary=None, zeros=np.zeros):
     """The rows of a batch as ``VectorEncoder.encode_batch`` lays them
-    out (encode_vector.py:1076-1094 there): the prefix rows of
-    ``decode_vector.pack_windows`` (one shared dictionary, or a list of
-    one a block, each cut to its last 64 KB and right-aligned in the
-    first P positions; P = 0 without one), each block from P on.
+    out (encode_vector.py:1076-1094 there): the window prefixes (one
+    shared dictionary, written once into every row, or a list of one a
+    block laid by ``decode_vector.pack_windows``; each cut to its last
+    64 KB and right-aligned in the first P positions, P = 0 without
+    one), each block from P on.  ``zeros(shape, dtype)`` makes the
+    zero-filled rows (``VectorEncoder`` hands its kept buffer's).
     Returns (x [B, D] uint8, data_len [B] int32, pre_len [B] int32 or
     None, P, D, O, S_cap)."""
     B = len(blocks)
-    pre, pre_len, P = (pack_windows(dictionary, B) if dictionary
-                       else (None, None, 0))
-    D, O, S_cap = batch_shapes(max(map(len, blocks)), P)
-    x = np.zeros((B, D), np.uint8)
-    if P:
-        x[:, :P] = pre
+    with span("lz4t.encode.window") if dictionary else nullcontext():
+        if not dictionary:
+            pre, pre_len, P = None, None, 0
+        elif isinstance(dictionary, (bytes, bytearray, memoryview)):
+            pre = np.frombuffer(bytes(dictionary)[-MAX_DISTANCE_WINDOW:],
+                                np.uint8)
+            pre_len = np.full(B, len(pre), np.int32)
+            P = _cdiv(len(pre), CH) * CH
+        else:
+            pre, pre_len, P = pack_windows(dictionary, B)
+        D, O, S_cap = batch_shapes(max(map(len, blocks)), P)
+        x = zeros((B, D), np.uint8)
+        if P:
+            x[:, P - pre.shape[-1]:P] = pre
     for j, b in enumerate(blocks):
         x[j, P:P + len(b)] = np.frombuffer(b, np.uint8)
     data_len = np.array([len(b) for b in blocks], np.int32)
     return x, data_len, pre_len, P, D, O, S_cap
+
+
+class HostRows(threading.local):
+    """Zero-filled host rows for a batch, from one buffer a thread kept
+    across batches: filling it again costs a memset, where fresh
+    zero-filled memory costs a page fault at first touch of every 4 KB
+    (tens of ms, and most of the spread between runs, for 1,024 rows
+    behind a 64 KB window).  The rows live until the thread's next
+    batch; the upload copies them first."""
+
+    buf = None
+
+    def zeros(self, shape, dtype):
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        if self.buf is None or self.buf.size < n:
+            self.buf = np.empty(n, np.uint8)
+        x = self.buf[:n].view(dtype).reshape(shape)
+        x.fill(0)
+        return x
 
 
 SEG_SIZE = 64 * 1024     # a big block's encode segments
@@ -562,12 +596,13 @@ def segment_rows(blocks, segs, dictionary=None):
     has one shape."""
     P = MAX_DISTANCE_WINDOW
     D, O, S_cap = batch_shapes(SEG_SIZE, P)
-    head = bytes(dictionary)[-P:] if dictionary else b""
-    pre, pre_len, Pw = pack_windows(
-        [(head + blocks[i][:s])[-P:] if s < P else blocks[i][s - P:s]
-         for i, s, _ in segs], len(segs))
-    x = np.zeros((len(segs), D), np.uint8)
-    x[:, P - Pw:P] = pre                 # right-aligned below P
+    with span("lz4t.encode.window"):
+        head = bytes(dictionary)[-P:] if dictionary else b""
+        pre, pre_len, Pw = pack_windows(
+            [(head + blocks[i][:s])[-P:] if s < P else blocks[i][s - P:s]
+             for i, s, _ in segs], len(segs))
+        x = np.zeros((len(segs), D), np.uint8)
+        x[:, P - Pw:P] = pre             # right-aligned below P
     lens = np.array([ln for *_, ln in segs], np.int32)
     for j, (i, s, ln) in enumerate(segs):
         x[j, P:P + ln] = np.frombuffer(blocks[i][s:s + ln], np.uint8)
@@ -594,6 +629,8 @@ class VectorEncoder:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.host_encodes = 0
+        self.window_bytes = 0       # window positions laid into rows
+        self._rows = HostRows()
 
     def _device_pass(self, x, lens, pre_len, P, D, O, S_cap, lvl,
                      hc_tiers):
@@ -634,8 +671,10 @@ class VectorEncoder:
                        if len(b) > self.MAX_BLOCK]
                 todo = [i for i, b in enumerate(blocks)
                         if b and len(b) <= self.MAX_BLOCK]
-                laid = (window_rows([blocks[i] for i in todo], dictionary)
-                        if todo else None)
+                laid = (window_rows([blocks[i] for i in todo], dictionary,
+                                    self._rows.zeros) if todo else None)
+                if laid:
+                    self.window_bytes += len(todo) * laid[3]
             lvl = min(max(hc_level, 0), 9)
             results = [b""] * len(blocks)   # an empty block encodes to b""
             if big:
@@ -673,6 +712,7 @@ class VectorEncoder:
             with span("lz4t.encode.layout"):
                 laid = segment_rows([blocks[i] for i in idx],
                                     segs[r0:r0 + self.SEG_ROWS], dictionary)
+                self.window_bytes += len(laid[1]) * laid[3]
             o, ol, k, a = self._device_pass(*laid, lvl, hc_tiers)
             with span("lz4t.encode.unpack"):
                 payloads += [o[j, :n].tobytes() for j, n in enumerate(ol)]

@@ -130,7 +130,8 @@ def test_the_manifest_lists_the_readers():
     for name in READERS:
         e = entries[name]
         assert e["source"] == "device_trace" and e["moves"] == "write_mb_s"
-        assert e["workloads"] == ["silesia64k.hc9_write", "stream1m.write"]
+        assert e["workloads"] == ["silesia64k.hc9_write", "stream1m.write",
+                                  "records4k-dict.hc9_write"]
         assert callable(manifest.metric_reader(name).read)
     assert entries["passes.write"]["layer"] == "device pass and kernels"
     assert entries["layout_ms.write"]["layer"] == \

@@ -15,7 +15,9 @@ package, tolerance 0 (bytes and certificates are integers).
   dictionary=)``, against the JAX encoder's bytes (``fused=False``, one
   compile shared by both); the chain record path in P mode against the
   sequence path; fast-HC in P mode by round trip (a JAX HC compile at
-  this shape would cost more than the file's budget);
+  this shape would cost more than the file's budget), and HC level 9 at
+  the dictionary-records cell's row shape (P = 65,536, D = 73,728)
+  against the JAX encoder's bytes (one compile);
 * the facade: ``wrap``, ``wrap_hc`` and ``unwrap`` against
   ``lz4net_tpu.codec``'s envelopes, strict (HC and dictionary) encode,
   ``decode``'s three modes and its argument errors.
@@ -233,6 +235,52 @@ def test_dictionary_fast_hc_round_trips(level):
         payloads, [len(b) for b in blocks], window) == blocks
     assert codec.encode_hc(blocks[0], level=level, dictionary=window,
                            mode="fast", device="cpu") == payloads[0]
+
+
+def test_dictionary_fast_hc9_at_the_record_cells_row_shape():
+    """The benchmark's dictionary-records rows (``records4k-dict``): 4
+    records of 4 KB behind a 64 KB dictionary of 16 records spread
+    through the corpus, at HC level 9, P = 65,536 and D = 73,728; the
+    payloads decode with the dictionary and equal the JAX vector
+    encoder's in the same mode (one JAX compile, about 70 s)."""
+    records = corpus.split_blocks(corpus.silesia_like(1 << 20, seed=22),
+                                  4096)
+    dictionary = b"".join(records[::16])
+    batch = records[1::4][:4]
+    assert len(dictionary) == 65536
+    _x, _dl, _pl, p, d, _o, _s = ev.window_rows(batch, dictionary)
+    assert (p, d, ev.hc_rcap(9, d)) == (65536, 73728, 18432)
+    enc = ev.VectorEncoder("cpu")
+    payloads = enc.encode_batch(batch, hc_level=9, dictionary=dictionary)
+    assert enc.host_encodes == 0
+    assert enc.window_bytes == len(batch) * 65536
+    for payload, record in zip(payloads, batch):
+        assert reference.decompress_block_dict(
+            payload, dictionary, len(record)) == record
+    assert payloads == jev.VectorEncoder().encode_batch(
+        batch, hc_level=9, dictionary=dictionary)
+
+
+@pytest.mark.parametrize("kept", [False, True])
+def test_window_rows_lay_a_shared_window_as_one_a_row(kept):
+    """A shared dictionary is written once into every row; the rows equal
+    ``pack_windows``' layout of the same window given once a row, and a
+    thread's kept buffer (``HostRows``) holds no byte of the batches laid
+    in it before."""
+    window = corpus.silesia_like(20000, seed=3)
+    big = [corpus.silesia_like(9000, seed=s) for s in (1, 2)]
+    small = [b"abc" * 10, b"", b"z"]
+    rows = ev.HostRows()
+    zeros = rows.zeros if kept else np.zeros
+    for blocks, d in ((big, window), (small, None), (small, window[:5]),
+                      (big, None), (small, window)):
+        got = ev.window_rows(blocks, d, zeros)
+        want = ev.window_rows(blocks, [d] * len(blocks) if d else None)
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert g == w
 
 
 def test_p_mode_rows_wider_than_the_kernels_raise():

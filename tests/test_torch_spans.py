@@ -6,6 +6,10 @@
   ``lz4t.stream.chunk``) and, inside it, layout < upload < pass < fetch <
   unpack, each a leaf; one pass a batch, one chunk span a batch of
   chunks written, at most 8 spans a batch;
+* a pass with a dictionary (and a big block's segment pass) lays its
+  window rows inside one ``lz4t.encode.window`` span within its layout,
+  the one span that a phase span holds; a pass without one opens none;
+  ``VectorEncoder.window_bytes`` grows by B x P a pass;
 * the bytes are the same with the profiler on and off;
 * with no profiler running the spans never reach ``record_function``:
   with it made to raise, every entry point returns the same bytes.
@@ -38,12 +42,16 @@ LENS = [len(b) for b in BLOCKS]
 BIG = DATA[:140_000]                  # over 96 KB: segments, fragments
 CHUNK = 4096
 FILE = DATA[20_000:30_000]            # 3 chunks of CHUNK bytes
+WINDOW = DATA[100_000:120_000]        # a preset dictionary: P = 24,576
 ORDER = ["layout", "upload", "pass", "fetch", "unpack"]
 ROOTS = ("lz4t.encode.batch", "lz4t.decode.batch", "lz4t.stream.chunk")
+WINDOW_SPAN = "lz4t.encode.window"
 
 CALLS = {
     "hc9": lambda: VectorEncoder("cpu").encode_batch(BLOCKS, hc_level=9),
     "fast": lambda: VectorEncoder("cpu").encode_batch(BLOCKS),
+    "dict": lambda: VectorEncoder("cpu").encode_batch(BLOCKS,
+                                                      dictionary=WINDOW),
     "strict": lambda: SequencerEncoder("cpu").encode_batch(BLOCKS),
     "stream": lambda: stream.compress_stream(FILE, block_size=CHUNK,
                                              device="cpu"),
@@ -109,10 +117,14 @@ def test_phases_in_order_inside_each_batch(traced, name, side):
 def test_phase_spans_are_leaves(traced, name):
     _got, found = traced[name]
     assert found
-    phases = [s for s in found if s[0] not in ROOTS]
+    phases = [s for s in found if s[0] not in ROOTS + (WINDOW_SPAN,)]
     for s in phases:
         assert _phase(s) in ORDER + ["frame"], s
-        assert not any(_inside(o, s) for o in found), s
+        # a layout may hold its window span, and nothing else
+        assert not any(_inside(o, s) for o in found if not (
+            o[0] == WINDOW_SPAN and s[0] == "lz4t.encode.layout")), s
+    for w in (s for s in found if s[0] == WINDOW_SPAN):
+        assert not any(_inside(o, w) for o in found), w
     # every encode or decode phase lies inside its call's root
     for s in phases:
         side = s[0].split(".")[1]
@@ -187,3 +199,34 @@ def test_the_off_path_never_enters_record_function(traced, monkeypatch):
         assert inner is None
     for name, call in {**CALLS, **BIG_CALLS}.items():
         assert call() == traced[name][0], name
+
+
+@pytest.mark.parametrize("name", ["dict", "big_fast"])
+def test_a_window_pass_opens_one_window_span_inside_its_layout(traced,
+                                                               name):
+    _got, found = traced[name]
+    windows = [s for s in found if s[0] == WINDOW_SPAN]
+    layouts = [s for s in found if s[0] == "lz4t.encode.layout"]
+    passes = [s for s in found if s[0] == "lz4t.encode.pass"]
+    assert len(windows) == len(passes) == 1
+    assert [lay for lay in layouts if _inside(windows[0], lay)]
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in {**CALLS, **BIG_CALLS} if n not in ("dict", "big_fast")))
+def test_a_pass_without_a_dictionary_opens_no_window_span(traced, name):
+    _got, found = traced[name]
+    assert found and not [s for s in found if s[0] == WINDOW_SPAN]
+
+
+def test_window_bytes_counts_the_window_positions_laid():
+    enc = VectorEncoder("cpu")
+    assert enc.window_bytes == 0
+    enc.encode_batch(BLOCKS)
+    assert enc.window_bytes == 0
+    enc.encode_batch(BLOCKS, dictionary=WINDOW)
+    p = decode_vector.pack_windows(WINDOW, 1)[2]
+    assert p == 24_576 and enc.window_bytes == len(BLOCKS) * p
+    # a big block's three 64 KB segments, each behind a 64 KB window
+    enc.encode_batch([BIG])
+    assert enc.window_bytes == len(BLOCKS) * p + 3 * 65_536
