@@ -62,9 +62,11 @@
    strict encoder also on corpus.strict_edge_rows (16 rows: runs, noise,
    hash collisions inside probe windows, both table variants, budgets at
    each output-limit check), on 8 blocks of 256 KB, which its
-   one-thread kernel for rows wider than shared memory takes, and on 4
-   blocks as wide as the widest row it stages in shared memory
-   (encode_sequencer.row_max) and 4 one byte wider; the sequencer
+   kernel reads from device memory, rows being wider than it stages in
+   shared memory, on 4 blocks as wide as the widest row it stages
+   (encode_sequencer.row_max) and 4 one byte wider, and on the stream
+   cell's batch, 8 chunks of 1 MB of an 8 MiB corpus (with the rows it
+   read from device memory, encode_sequencer.device_rows); the sequencer
    decoder also on corpus.decode_edge_rows (at their D and one byte
    short of it) and on 4 rows as wide as the widest output row it
    decodes in shared memory (decode_sequencer.row_max) and 4 one byte
@@ -2451,28 +2453,38 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
     # the edge rows (corpus.strict_edge_rows: runs, noise, hash collisions
     # inside probe windows, both table variants, the budgets at each
     # output-limit check); 8 blocks of 256 KB, rows too wide for shared
-    # memory, which go to the one-thread kernel; 4 blocks as wide as the
-    # widest row staged in shared memory, then one byte wider
+    # memory, which the kernel reads from device memory; 4 blocks as wide
+    # as the widest row staged in shared memory, then one byte wider; the
+    # stream cell's batch, 8 chunks of 1 MB of an 8 MiB corpus (its plain
+    # version checks it untimed: about 8 s a call)
     edge = corpus.strict_edge_rows(SEED)
     wide = corpus.split_blocks(b"".join(blocks[:32]), 1 << 18)
     limit = es.row_max("cuda")
     at_limit = corpus.split_blocks(b"".join(blocks[:12]), limit)[:4]
     over = corpus.split_blocks(b"".join(blocks[:12]), limit + 1)[:4]
+    chunks = corpus.split_blocks(corpus.silesia_like(8 << 20, SEED), 1 << 20)
+    stream_batch = "the stream cell's batch, 8 chunks of 1 MB"
     for what, rows_in, caps in (
             ("edge rows", [d for _, d, _ in edge],
              [b if b is not None else maximum_output_length(len(d))
               for _, d, b in edge]),
-            ("wide-row kernel, 256 KB rows", wide,
+            ("device-memory rows of 256 KB", wide,
              [maximum_output_length(len(d)) for d in wide]),
             ("the widest staged rows", at_limit,
              [maximum_output_length(len(d)) for d in at_limit]),
-            ("one byte wider, the wide-row kernel", over,
-             [maximum_output_length(len(d)) for d in over])):
+            ("one byte wider, read from device memory", over,
+             [maximum_output_length(len(d)) for d in over]),
+            (stream_batch, chunks,
+             [maximum_output_length(len(d)) for d in chunks])):
         vsrc, vlen = _uint8_rows(torch, rows_in)
         vcap = torch.tensor(caps, dtype=torch.int32, device="cuda")
         vO = int(vcap.max())
         vargs = (vsrc.cpu(), vlen.cpu(), vcap.cpu(), vO)
         n_in = sum(map(len, rows_in))
+        device = es.device_rows
+        es.encode_sequencer(vsrc, vlen, vcap, vO)
+        print(f"encode_sequencer ({what}): device_rows "
+              f"+{es.device_rows - device}")
         kernel_row(
             "encode_sequencer", "", "", es,
             lambda: es.encode_sequencer(vsrc, vlen, vcap, vO),
@@ -2480,7 +2492,8 @@ def strict_phases(torch, card, kernel_row, rows, blocks, packed):
             n_bytes=lambda got: (n_in + 2 * len(rows_in) * i4
                                  + int(got[1].clamp(min=0).sum())
                                  + len(rows_in) * i4),
-            n_ops=10 * n_in, plain_reps=1, defined=payloads,
+            n_ops=10 * n_in, plain_reps=0 if what == stream_batch else 1,
+            defined=payloads,
             variant=f"{what}, B={len(rows_in)}, S={vsrc.shape[1]}")
     comp, comp_len = _uint8_rows(torch, packed)
     out_len = torch.tensor(lens, dtype=torch.int32, device="cuda")

@@ -184,11 +184,16 @@ def _raise(fault: int, messages: dict) -> None:
 def _encode(entry, n: int, dst_maxlen) -> bytes:
     """The payload ``entry(out, cap)`` writes, b"" where it does not fit
     ``dst_maxlen``.  A budget over the worst case for ``n`` input bytes
-    (or None) is the worst case: the parse never reaches it."""
+    (or None) is the worst case: the parse never reaches it.  The buffer
+    holds the worst case whatever the budget: the reference's checks
+    before a literal run and a match length count its 255-bytes as
+    length >> 8, so a parse that passes them can write up to length /
+    65,280 bytes past the budget before its last check refuses it (about
+    65 bytes for a 4 MB run of zeros)."""
     worst = maximum_output_length(n)
     dst_maxlen = worst if dst_maxlen is None else min(dst_maxlen, worst)
     _sizes(worst)
-    buf = _out_buffer(dst_maxlen)
+    buf = _out_buffer(worst)
     written = entry(buf, dst_maxlen)
     return _read(buf, 0, written) if written > 0 else b""
 

@@ -4,11 +4,15 @@ per CTA.
 Port of the TPU kernel ``lz4net_tpu/ops/encode_pallas.py``
 (``build_encode_call``, ``_encode_kernel`` :51), the JAX package's
 "sequencer" encoder and the default encode of its facade.  The CUDA
-kernel is ``csrc/encode_sequencer.cu``: rows that fit the device's
-shared memory (``row_max``: 183,232 bytes on the H100) are staged there
-and parsed by one warp, wider rows by one thread from device memory,
-chosen by the row width in one launch (its header says what bounds it on
-the H100 and what the design does about that);
+kernel is ``csrc/encode_sequencer.cu``: one warp a block runs the parse,
+on the row staged whole in shared memory where it fits (``row_max``:
+183,232 bytes on the H100), else on the row where it lies in device
+memory, through the L1 cache (``device_rows`` counts those rows), chosen
+by the row width in one launch.  What bounds it on the H100 is the
+parse's chain of dependent warp steps, about 0.5 us a token, so a batch
+takes as long as its densest row; a wide row's parse reads within about
+64 KB behind its position, which L1 holds, at about 1.1 times the staged
+row's time (the header says what the design does about each bound).
 ``encode_sequencer_reference`` is its plain version, used for CPU tensors
 and as the kernel's yardstick on the card.
 
@@ -35,6 +39,8 @@ from .decode_vector import resolve_device
 MAX_COLS = (1 << 31) // 256   # S and O: block offsets stay inside int32
 
 launches = 0
+# rows the kernel parsed from device memory (rows wider than row_max)
+device_rows = 0
 
 
 def _check(src, src_len, dst_maxlen, O):
@@ -50,7 +56,7 @@ def _check(src, src_len, dst_maxlen, O):
 
 def row_max(device="cuda") -> int:
     """The widest row (S) that the kernel stages in shared memory on
-    ``device``, a CUDA device; wider rows go to its one-thread kernel."""
+    ``device``, a CUDA device; wider rows it reads from device memory."""
     n = ctypes.c_int(0)
     _build.launch("lz4t_encode_sequencer_row_max", torch.device(device),
                   ctypes.addressof(n))
@@ -65,7 +71,7 @@ def encode_sequencer(src, src_len, dst_maxlen, O: int):
     is -1 when the block would exceed ``dst_maxlen[b]`` or ``O``
     (``status[:, 0]`` of ``encode_pallas.py:305``; the JAX caller sizes O
     to fit)."""
-    global launches
+    global launches, device_rows
     _check(src, src_len, dst_maxlen, O)
     if src.device.type == "cpu":
         return encode_sequencer_reference(src, src_len, dst_maxlen, O)
@@ -80,6 +86,8 @@ def encode_sequencer(src, src_len, dst_maxlen, O: int):
                   src_len.data_ptr(), dst_maxlen.data_ptr(), out.data_ptr(),
                   written.data_ptr(), B, S, O)
     launches += 1
+    if S > row_max(src.device):
+        device_rows += B
     return out, written
 
 

@@ -3,21 +3,23 @@
     python3 -m lz4net_tpu_torch.tools.parse_clocks      # repository root
 
 Copies ``csrc/encode_sequencer.cu`` with section marks of ``clock64()``
-put into its shared-memory kernel (``MARKS`` below: lane 0 of each block
-adds the cycles between marks, and counts, to a device array), builds
-the copy alone into its own library beside the port's build, encodes the
-16 MB silesia-like corpus (seed 0) in 256 blocks of 64 KB with it,
-checks every payload against the port's own kernel, and prints the
-cycles of each section a block (mean over the blocks and the slowest
-block), the counts behind them (windows of 32 probes, sequences,
-catch-up and extension steps, literal bytes, re-matches), and the kernel
-times of both builds (CUDA events).  The marks cost time of their own:
-compare the two kernel times.  Then the cycles a step of the primitives
-the parse is made of (``warp_primitives.cu`` beside this file: shared
-loads, shuffles, ballots, ``__match_any_sync`` and the atomicOr lane mask
-that stands in for it, a short literal copy), each a chain of dependent
-steps of one warp.  The port's own source carries no marks; a mark whose
-place in it is not found once stops the tool.
+put into its warp parse and both of its kernels (``MARKS`` below: lane 0
+of each block adds the cycles between marks, and counts, to a device
+array), builds the copy alone into its own library beside the port's
+build, encodes the 16 MB silesia-like corpus (seed 0) in 256 blocks of
+64 KB with it (the shared-memory kernel), checks every payload against
+the port's own kernel, and prints the cycles of each section a block
+(mean over the blocks and the slowest block), the counts behind them
+(windows of 32 probes, sequences, catch-up and extension steps, literal
+bytes, re-matches), and the kernel times of both builds (CUDA events).
+The marks cost time of their own: compare the two kernel times.  Then
+the same for one 1 MB row of the corpus, which the kernel reads from
+device memory.  Then the cycles a step of the primitives the parse is
+made of (``warp_primitives.cu`` beside this file: shared loads,
+shuffles, ballots, ``__match_any_sync`` and the atomicOr lane mask that
+stands in for it, a short literal copy), each a chain of dependent steps
+of one warp.  The port's own source carries no marks; a mark whose place
+in it is not found once stops the tool.
 """
 
 from __future__ import annotations
@@ -97,6 +99,14 @@ MARKS = [
      "  __syncthreads();\n  CLK(0);\n  if (tid >= 32) return;\n"),
     ("  if (tid == 0) written_all[b] = w > O ? -1 : w;\n",
      "  if (tid == 0) written_all[b] = w > O ? -1 : w;\n  CLK(7);\n"),
+    # the device-memory kernel: its table cleared, then the whole parse
+    ("  const int b = blockIdx.x;\n  const int t = threadIdx.x;\n",
+     "  const int b = blockIdx.x;\n  const int t = threadIdx.x;\n"
+     "  CLK_START\n"),
+    ("  __syncthreads();\n  if (t >= 32) return;\n",
+     "  __syncthreads();\n  CLK(0);\n  if (t >= 32) return;\n"),
+    ("                    .run(n, dst_maxlen_all[b]);\n",
+     "                    .run(n, dst_maxlen_all[b]);\n  CLK(7);\n"),
 ]
 
 
@@ -116,14 +126,10 @@ def build() -> ctypes.CDLL:
                          extra=[prims], plain=False)[0]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("parse_clocks: needs a CUDA device")
-    card = _clocks.card()
-    print(card)
-    dll = build()
-    blocks = corpus.split_blocks(corpus.silesia_like(16 << 20, seed=0),
-                                 1 << 16)
+def clock_blocks(dll, blocks, card: str):
+    """Encode ``blocks`` (one row each) with the clocked build, check
+    every payload against the port's kernel, and print the sections and
+    counts a block and both builds' kernel times."""
     B, S = len(blocks), max(map(len, blocks))
     src = np.zeros((B, S), np.uint8)
     for j, blk in enumerate(blocks):
@@ -154,8 +160,9 @@ def main() -> int:
         raise SystemExit("parse_clocks: payloads differ from the kernel's")
 
     slow = int(np.argmax(rows[:, 7]))
-    print(f"{B} blocks of {S} bytes; payloads equal the kernel's; "
-          f"slowest block {slow}")
+    kernel = "device-memory" if S > es.row_max("cuda") else "shared-memory"
+    print(f"{B} blocks of {S} bytes ({kernel} kernel); payloads equal the "
+          f"kernel's; slowest block {slow}")
     print("section: mean cycles a block (share of the parse), slowest "
           "block")
     for k, name in enumerate(SECTIONS):
@@ -175,6 +182,20 @@ def main() -> int:
     print(f"kernel time: clocked build {ms_clocked:.4f} ms, the port's "
           f"{ms_plain:.4f} ms; the slowest block's parse {rows[slow, 7]:.0f} "
           f"cycles; {card}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("parse_clocks: needs a CUDA device")
+    card = _clocks.card()
+    print(card)
+    dll = build()
+    clock_blocks(dll, corpus.split_blocks(
+        corpus.silesia_like(16 << 20, seed=0), 1 << 16), card)
+    # one 1 MB row read from device memory: the densest chunk of an
+    # 8 MiB stream of the corpus at 1 MB chunks
+    clock_blocks(dll, [corpus.split_blocks(
+        corpus.silesia_like(8 << 20, seed=0), 1 << 20)[5]], card)
     steps = np.zeros(len(PRIMITIVES), np.float64)
     check(dll.lz4t_warp_primitives(steps.ctypes.data), "primitives")
     print("cycles a dependent step of one warp: " + "; ".join(

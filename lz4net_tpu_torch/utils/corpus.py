@@ -252,6 +252,70 @@ def strict_edge_rows(seed: int = 0) -> list:
     ]
 
 
+# strict_wide_rows' catch_up row: noise, then a stretch of CATCH_UP[1]
+# random bytes at CATCH_UP[0], repeated at once
+CATCH_UP = (400_000, 59_619)
+
+
+def strict_wide_rows(seed: int = 0, width: int = 1 << 20) -> list:
+    """Rows of ``width`` bytes (at least 1 MB), wider than the strict
+    encoder stages in shared memory, that drive the edge cases of its
+    wide-row kernel, which reads them from device memory: [(name, block,
+    budget)], budget None for the worst-case bound.
+
+    * silesia-like text;
+    * zeros (one match to the end: an extension over the whole row);
+    * noise (no match: last literals of the whole row);
+    * a 65,535-byte period repeated (one match at the window's distance
+      limit, whose candidates are the oldest bytes the window reaches);
+    * ``catch_up``: noise with a stretch of CATCH_UP[1] bytes at
+      CATCH_UP[0] repeated at once.  Until a match is found the skip
+      loop's probe positions depend only on its attempt counter, and its
+      first probe whose position less CATCH_UP[1] is a probed position
+      lies 50,175 bytes into the copy; so the match comes after a literal
+      run of CATCH_UP[0] + CATCH_UP[1] bytes, and its catch-up runs back
+      50,175 bytes or more, its reference side to 109,794 or more behind
+      the probe;
+    * a short row (the small hash variant) and silesia-like text 5 bytes
+      wider than ``width`` (a batch at that width starts its rows at each
+      alignment of a word, and each but the first off a 16-byte
+      boundary);
+    * budgets at each of the three output-limit checks (the check fails,
+      then the budget one byte larger): the catch_up row at its literal
+      run, zeros at the match length, noise at the last literals.
+    """
+    from ..constants import LASTLITERALS
+    from ..models.reference import compress_block
+
+    rng = random.Random(seed)
+    at, span = CATCH_UP
+    noise = rng.randbytes(width)
+    stretch = bytearray(rng.randbytes(span))
+    head = bytearray(noise[:at])
+    head[-1] = stretch[-1] ^ 1          # the catch-up stops at the copy
+    catch_up = (bytes(head) + bytes(stretch) * 2 + noise)[:width]
+    zeros = bytes(width)
+    lits = at + span                     # the catch_up row's first run
+    mlen = width - 2 * LASTLITERALS      # zeros: one match from byte 1
+    full = len(compress_block(noise))
+    return [
+        ("text", silesia_like(width, seed), None),
+        ("zeros", zeros, None),
+        ("noise", noise, None),
+        ("period", (rng.randbytes(65535) * (width // 65535 + 1))[:width],
+         None),
+        ("catch_up", catch_up, None),
+        ("short", silesia_like(4000, seed + 2), None),
+        ("odd_width", silesia_like(width + 5, seed + 1), None),
+        ("literals_check", catch_up, lits + (lits >> 8) + 8),
+        ("literals_check_passed", catch_up, lits + (lits >> 8) + 9),
+        ("match_check", zeros, 9 + (mlen >> 8)),
+        ("match_check_passed", zeros, 10 + (mlen >> 8)),
+        ("last_literals_check", noise, full - 1),
+        ("last_literals_fit", noise, full),
+    ]
+
+
 def _lz4_length(n: int) -> bytes:
     """The 255-extension bytes of a length nibble of 15 (n = length - 15)."""
     return b"\xff" * (n // 255) + bytes([n % 255])

@@ -7,11 +7,13 @@ cross the 32-position words of the break bitmasks and their level
 boundaries and reach the block's end, at K = 0, 8 and 24 dominant offsets
 and at D = 106496.  ``encode_sequencer``: the rows and budgets of
 ``corpus.strict_edge_rows`` on both of its kernels (rows staged in shared
-memory, and the same rows padded to 256 KB for the one-thread kernel),
-and rows at the widest width staged in shared memory (``row_max``) and
-one byte wider.  ``parse_tokens`` and ``decode_sequencer``: the rows of
-``corpus.decode_edge_rows`` (for ``parse_tokens`` packed with seeded junk
-rows, ``corpus.parse_edge_rows``), and
+memory, and the same rows padded to 256 KB, which it reads from device
+memory), rows at the widest width staged in shared memory (``row_max``)
+and one byte wider, and the rows and budgets of
+``corpus.strict_wide_rows`` at 1 MB and 4 MB, read from device memory,
+with the count of such rows.  ``parse_tokens`` and ``decode_sequencer``:
+the rows of ``corpus.decode_edge_rows`` (for ``parse_tokens`` packed with
+seeded junk rows, ``corpus.parse_edge_rows``), and
 ``decode_sequencer`` on output rows at its ``row_max`` and one byte wider.
 ``sequence_records`` and ``bucket_prev``: the rows of
 ``corpus.seq_edge_rows`` and ``corpus.bucket_edge_rows`` at D = 4096 and
@@ -209,7 +211,7 @@ def _strict_batch(rows, width):
 @pytest.mark.parametrize("wide", [False, True])
 def test_encode_sequencer_edge_rows_on_the_card(cuda, wide):
     """The shared-memory kernel (rows as wide as the widest block) and
-    the one-thread kernel (the same rows in 256 KB rows); written and
+    the device-memory kernel (the same rows in 256 KB rows); written and
     every payload byte equal to the plain version's."""
     rows = corpus.strict_edge_rows(0)
     width = max(len(d) for _, d, _ in rows)
@@ -218,10 +220,11 @@ def test_encode_sequencer_edge_rows_on_the_card(cuda, wide):
     assert (width > es.row_max(cuda)) == wide
     src, lens, cap = _strict_batch(rows, width)
     O = int(cap.max())
-    before = es.launches
+    before, device = es.launches, es.device_rows
     out, written = es.encode_sequencer(src.to(cuda), lens.to(cuda),
                                        cap.to(cuda), O)
     assert es.launches == before + 1
+    assert es.device_rows == device + wide * len(rows)
     want, want_written = es.encode_sequencer_reference(src, lens, cap, O)
     assert written.cpu().tolist() == want_written.tolist()
     assert (want_written < 0).sum() == 6          # the budgets below fit
@@ -234,8 +237,8 @@ def test_encode_sequencer_edge_rows_on_the_card(cuda, wide):
 @pytest.mark.parametrize("extra", [0, 1])
 def test_encode_sequencer_at_the_staged_row_limit(cuda, extra):
     """Rows at the widest width the shared-memory kernel takes on this
-    card and one byte wider (the one-thread kernel): text, zeros, noise
-    and a short row, each payload equal to the plain version's."""
+    card and one byte wider (the device-memory kernel): text, zeros,
+    noise and a short row, each payload equal to the plain version's."""
     limit = es.row_max(cuda)
     assert limit >= 128 * 1024
     width = limit + extra
@@ -247,16 +250,44 @@ def test_encode_sequencer_at_the_staged_row_limit(cuda, extra):
             ("short", corpus.silesia_like(4000, 6), None)]
     src, lens, cap = _strict_batch(rows, width)
     O = int(cap.max())
-    before = es.launches
+    before, device = es.launches, es.device_rows
     out, written = es.encode_sequencer(src.to(cuda), lens.to(cuda),
                                        cap.to(cuda), O)
     assert es.launches == before + 1
+    assert es.device_rows == device + extra * len(rows)
     want, want_written = es.encode_sequencer_reference(src, lens, cap, O)
     assert written.cpu().tolist() == want_written.tolist()
     assert (want_written > 0).all()
     for (name, _, _), g, w, n in zip(rows, out.cpu(), want,
                                      want_written.tolist()):
         assert torch.equal(g[:n], w[:n]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1 << 20, 4 << 20])
+def test_encode_sequencer_wide_rows_on_the_card(cuda, width):
+    """``corpus.strict_wide_rows`` through the device-memory kernel in
+    one batch (its odd_width row makes the batch's width 5 bytes over a
+    multiple of 16, so the rows start at each alignment of a word and
+    every row but the first off a 16-byte boundary): written, with its -1 at
+    each output-limit check, and every payload byte equal to the plain
+    version's; every row counted in ``device_rows``."""
+    rows = corpus.strict_wide_rows(0, width)
+    S = max(len(d) for _, d, _ in rows)
+    assert S % 16 and S > es.row_max(cuda)
+    src, lens, cap = _strict_batch(rows, S)
+    O = int(cap.max())
+    before, device = es.launches, es.device_rows
+    out, written = es.encode_sequencer(src.to(cuda), lens.to(cuda),
+                                       cap.to(cuda), O)
+    assert es.launches == before + 1
+    assert es.device_rows == device + len(rows)
+    want, want_written = es.encode_sequencer_reference(src, lens, cap, O)
+    assert written.cpu().tolist() == want_written.tolist()
+    assert (want_written < 0).sum() == 5
+    for (name, _, _), g, w, n in zip(rows, out.cpu(), want,
+                                     want_written.tolist()):
+        assert torch.equal(g[:max(n, 0)], w[:max(n, 0)]), name
 
 
 @pytest.mark.gpu

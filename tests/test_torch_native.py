@@ -4,7 +4,9 @@ port's copy of the JAX package's C++ oracle) on the CPU.
 * its encoders (strict, HC at levels 1, 5 and 9, dictionary and HC
   dictionary) give the bytes of ``lz4net_tpu.models.native`` and of the
   port's ``models.reference`` at 0 B to 1 MB of two kinds of data, also
-  under output budgets at and around the payload's length;
+  under output budgets at and around the payload's length, and write
+  inside their buffer under budgets at the match-length check of 1 and
+  4 MB of zeros;
 * its decoders (known length, unknown length, dictionary, fragment) give
   the Python decoders' bytes or raise their errors, message for message,
   on a seeded mutation fuzz of small blocks;
@@ -230,6 +232,21 @@ def test_long_length_extensions_do_not_wrap():
     data = _data("mixed", 4096)
     assert native.compress_block(data, 1 << 40) == \
         native.compress_block(data) == jnative.compress_block(data)
+
+
+@pytest.mark.parametrize("n", [1 << 20, 4 << 20])
+def test_budgets_at_the_length_checks_write_inside_the_buffer(n):
+    """Budgets at the match-length check of n bytes of zeros (one match
+    of n - 10 bytes): the check counts its 255-bytes as length >> 8, so
+    the parse that passes it writes about n / 65,280 bytes past the
+    budget before its last check refuses it; the payload buffer holds
+    the worst case (at 4 MB a buffer of the budget's size was overrun and
+    the heap corrupted).  Both give b"", as the reference."""
+    zeros = bytes(n)
+    for budget in (9 + ((n - 10) >> 8), 10 + ((n - 10) >> 8)):
+        assert native.compress_block(zeros, budget) == b"" == \
+            reference.compress_block(zeros, budget)
+    assert native.compress_block(zeros) == reference.compress_block(zeros)
 
 
 def test_batched_calls_equal_the_one_block_calls():

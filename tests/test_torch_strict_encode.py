@@ -6,7 +6,13 @@ version), held byte for byte against the JAX package:
 * the JAX package's oracle, which its tests hold bit-identical to that
   kernel, at full width: a 64 KB block, blocks of ``LZ4_64KLIMIT`` - 1,
   ``LZ4_64KLIMIT`` and + 1 bytes (the two hash variants) and 128 KB;
-* the facade: ``codec.encode`` against the JAX ``codec.encode`` (strict).
+* the facade: ``codec.encode`` against the JAX ``codec.encode`` (strict);
+* the JAX package's oracle on ``corpus.strict_wide_rows``, the 1 MB
+  rows and budgets that drive the card's kernel for rows it reads from
+  device memory (the port's copy of the oracle, ``models.native``, on
+  the two budgets at the match-length check, where the JAX package's
+  library writes past its buffer);
+* the places of ``tools/parse_clocks.py``'s marks in the kernel's source.
 """
 
 import random
@@ -25,6 +31,7 @@ from lz4net_tpu.ops.encode_pallas import PallasEncoder  # noqa: E402
 from lz4net_tpu_torch import codec  # noqa: E402
 from lz4net_tpu_torch.constants import LZ4_64KLIMIT  # noqa: E402
 from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
+from lz4net_tpu_torch.models import native as port_native  # noqa: E402
 from lz4net_tpu_torch.models.service_adapters import CudaService  # noqa
 from lz4net_tpu_torch.ops import encode_sequencer as es  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
@@ -118,3 +125,70 @@ def test_output_cap_of_8_mib_or_more():
     assert codec.encode(data, len(want) - 1, device="cpu") == b""
     assert es.SequencerEncoder("cpu").encode_batch(
         [data, data], [9_000_000, len(want) - 1]) == [want, b""]
+
+
+def _probes(end):
+    """The skip loop's probe positions below ``end`` while no match is
+    found: they depend only on its attempt counter."""
+    out, p, attempts = [], 1, 67
+    while p < end:
+        out.append(p)
+        p += attempts >> 6
+        attempts += 1
+    return out
+
+
+def test_plain_matches_oracle_on_wide_rows():
+    """``corpus.strict_wide_rows`` in one batch through the plain version
+    (``odd_width`` makes the batch 1 MB + 5 bytes wide): every payload
+    and the -1 of each budget row equal to the JAX package's oracle's,
+    save the two budgets at the match-length check of 1 MB of zeros,
+    held against the port's copy of the oracle: the JAX package's library
+    writes there past the buffer it sizes from the budget (about 16
+    bytes; ``test_torch_native.py``); the catch_up row matches only after
+    its literal run, at the stretch's offset, and its first probe that
+    can hit lies 50,175 bytes into the copy."""
+    rows = corpus.strict_wide_rows(0)
+    S = max(len(d) for _, d, _ in rows)
+    src = np.zeros((len(rows), S), np.uint8)
+    for i, (_, d, _) in enumerate(rows):
+        src[i, :len(d)] = np.frombuffer(d, np.uint8)
+    caps = [b if b is not None else len(d) + len(d) // 255 + 16
+            for _, d, b in rows]
+    lens = torch.tensor([len(d) for _, d, _ in rows], dtype=torch.int32)
+    out, written = es.encode_sequencer(
+        torch.from_numpy(src), lens, torch.tensor(caps, dtype=torch.int32),
+        max(caps))
+    for (name, d, b), row, n in zip(rows, out.numpy(), written.tolist()):
+        oracle = port_native if name.startswith("match_check") else native
+        want = oracle.compress_block(d, b)
+        assert (row[:n].tobytes() if n >= 0 else b"") == want, name
+        assert (n < 0) == (want == b""), name
+    assert (written < 0).sum() == 5
+    at, span = corpus.CATCH_UP
+    catch_up = out[[name for name, _, _ in rows].index("catch_up")].numpy()
+    run = at + span                      # the first token's literals
+    k = (run - 15) // 255
+    assert catch_up[0] >> 4 == 15
+    assert bytes(catch_up[1:2 + k]) == b"\xff" * k + bytes([(run - 15) % 255])
+    offset = catch_up[2 + k + run:4 + k + run]
+    assert int(offset[0]) | int(offset[1]) << 8 == span
+    probes = _probes(at + 2 * span)
+    seen = set(probes)
+    first = min(q for q in probes if q >= at + span and q - span in seen)
+    assert first - (at + span) == 50_175
+
+
+def test_parse_clocks_finds_each_of_its_marks_once():
+    """``tools/parse_clocks.py`` puts its clock marks into a copy of
+    ``csrc/encode_sequencer.cu`` by text: each mark's place, in the warp
+    parse and both kernels, occurs once in the source (the tool stops
+    otherwise, and only on the card)."""
+    from lz4net_tpu_torch import _build
+    from lz4net_tpu_torch.tools import _clocks, parse_clocks
+
+    with open(f"{_build.CSRC}/encode_sequencer.cu") as fh:
+        text = fh.read()
+    marked = _clocks.marked(text, parse_clocks.MARKS, "encode_sequencer.cu",
+                            _clocks.counters())
+    assert marked.count("CLK(0)") == 2 and marked.count("CLK(7)") == 2
