@@ -12,9 +12,11 @@ Port of the entry points of ``lz4net_tpu/models/tpu.py``: strict encode
 native host engine (``models.native``), as the JAX package runs them on
 its host oracle (``_oracle()``): no device kernel of either package
 computes those parses.  The JAX
-package makes a decoder or encoder per call; here
-one vector decoder and one vector encoder per device are kept, so their
-``host_decodes`` and ``host_encodes`` counts can be read after a run.
+package makes a decoder or encoder per call; here one vector decoder,
+one vector encoder and one strict encoder per device are kept
+(``ops.host_rows.kept``), so the counts ``host_decodes`` and
+``host_encodes`` can be read after a run, and their rows' buffers last
+across calls.
 Decode runs the vector decoder, as on the TPU; the sequencer decoder
 (``ops.decode_sequencer.SequencerDecoder``, which the JAX package picks
 off the TPU or by ``LZ4NET_TPU_DECODER``) is called directly by what
@@ -29,30 +31,21 @@ from __future__ import annotations
 import torch
 
 from ..constants import hc_level_attempts
-from ..ops.decode_vector import VectorDecoder, resolve_device
+from ..ops.decode_vector import VectorDecoder
 from ..ops.encode_sequencer import SequencerEncoder
 from ..ops.encode_sequencer import compress_block  # noqa: F401 (one block)
 from ..ops.encode_vector import VectorEncoder
+from ..ops.host_rows import kept, resolve_device
 from . import native
-
-_DECODERS: dict[torch.device, VectorDecoder] = {}
-_ENCODERS: dict[torch.device, VectorEncoder] = {}
 
 
 def is_available() -> bool:
     return torch.cuda.is_available()
 
 
-def _kept(cache, cls, device):
-    device = resolve_device(device)     # raises for CUDA without a card
-    if device not in cache:
-        cache[device] = cls(device)
-    return cache[device]
-
-
 def decoder(device="cuda") -> VectorDecoder:
     """The vector decoder serving ``device``."""
-    return _kept(_DECODERS, VectorDecoder, device)
+    return kept(VectorDecoder, device)
 
 
 def decompress_block(src: bytes, output_length: int, device="cuda") -> bytes:
@@ -93,7 +86,7 @@ def decompress_blocks_dict(blocks, out_lens, dictionary: bytes,
 
 def encoder(device="cuda") -> VectorEncoder:
     """The fast and fast-HC encoder serving ``device``."""
-    return _kept(_ENCODERS, VectorEncoder, device)
+    return kept(VectorEncoder, device)
 
 
 def compress_blocks(blocks, dst_maxlens=None, device="cuda"):
@@ -102,7 +95,8 @@ def compress_blocks(blocks, dst_maxlens=None, device="cuda"):
     ``dst_maxlens`` entry.  Every block size runs on the card (the JAX
     package sends blocks over 48 KB to its host oracle); one block:
     ``compress_block``."""
-    return SequencerEncoder(device).encode_batch(list(blocks), dst_maxlens)
+    return kept(SequencerEncoder, device).encode_batch(list(blocks),
+                                                       dst_maxlens)
 
 
 def compress_blocks_fast(blocks, dst_maxlens=None, device="cuda"):

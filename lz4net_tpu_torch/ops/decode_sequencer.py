@@ -45,7 +45,7 @@ from .. import _build
 from ..constants import COPYLENGTH, LASTLITERALS
 from ..models.reference import CorruptedBlockError
 from ..spans import span
-from .decode_vector import resolve_device
+from .host_rows import HostRows, fetch, kept, lay, resolve_device, upload
 
 MAX_COLS = (1 << 31) // 256   # C and D: 255-extended lengths stay in int32
 
@@ -174,6 +174,7 @@ class SequencerDecoder:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+        self._rows = HostRows()
 
     def decode_batch(self, blocks, out_lens) -> list[bytes]:
         with span("lz4t.decode.batch"):
@@ -184,20 +185,14 @@ class SequencerDecoder:
                     return []
                 C = max(max(map(len, blocks)), 1)
                 D = max(max(out_lens), 1)
-                comp = np.zeros((len(blocks), C), np.uint8)
-                for i, b in enumerate(blocks):
-                    comp[i, :len(b)] = np.frombuffer(b, np.uint8)
-            dev = self.device
+                comp = lay(self._rows.empty((len(blocks), C)), blocks)
             with span("lz4t.decode.upload"):
-                comp = torch.from_numpy(comp).to(dev)
-                comp_len = torch.tensor([len(b) for b in blocks],
-                                        dtype=torch.int32, device=dev)
-                lens = torch.tensor(out_lens, dtype=torch.int32, device=dev)
+                comp, comp_len, lens = upload(
+                    self.device, comp, [len(b) for b in blocks], out_lens)
             with span("lz4t.decode.pass"):
                 out, status = decode_sequencer(comp, comp_len, lens, D)
             with span("lz4t.decode.fetch"):
-                status = status.cpu().numpy()
-                out = out.cpu().numpy()
+                out, status = fetch(out, status)
             with span("lz4t.decode.unpack"):
                 for i, (b, n) in enumerate(zip(blocks, out_lens)):
                     if int(status[i, 0]) != len(b) or int(status[i, 1]) != n:
@@ -208,15 +203,10 @@ class SequencerDecoder:
                 return [out[i, :n].tobytes() for i, n in enumerate(out_lens)]
 
 
-_DECODERS: dict[torch.device, SequencerDecoder] = {}
-
-
 def decompress_block(src: bytes, output_length: int, device="cuda") -> bytes:
     """One block through the sequencer decoder (``decode_pallas.
-    decompress_block``, :344-349), which raises ``CorruptedBlockError``
-    unless its status is ``(len(src), output_length)``; one decoder is
-    kept a device."""
-    device = resolve_device(device)     # raises for CUDA without a card
-    if device not in _DECODERS:
-        _DECODERS[device] = SequencerDecoder(device)
-    return _DECODERS[device].decode_batch([bytes(src)], [output_length])[0]
+    decompress_block``, :344-349), the one kept for ``device``, which
+    raises ``CorruptedBlockError`` unless its status is ``(len(src),
+    output_length)``."""
+    return kept(SequencerDecoder, device).decode_batch(
+        [bytes(src)], [output_length])[0]

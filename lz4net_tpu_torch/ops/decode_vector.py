@@ -57,6 +57,8 @@ from ..models import native, reference
 from ..spans import span
 from .bigblock import WINDOW, scan, split_fragments
 from .fused_gather import rowbase_gather
+from .host_rows import (HostRows, broadcast, fetch, lay, resolve_device,
+                        upload)
 from .parse_kernel import parse_tokens
 from .records_kernel import records_to_state
 from .resolve_kernel import resolve_wavefront
@@ -71,65 +73,64 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA without a card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
-                           "False; pass device='cpu' to run on the CPU")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
-
-
 def batch_from_numpy(comp, comp_len, out_len, device):
     """The port's tensors for one batch: comp [B, C] bytes (uint8, C a
     multiple of 4096) and comp_len/out_len [B] as numpy arrays, as the
     JAX ``_device_pass`` builds them.  The bytes ship as uint8 and widen
     to int32 on the device.  Returns (comp, comp_len, out_len) int32."""
-    device = resolve_device(device)
     comp = np.ascontiguousarray(comp, dtype=np.uint8)
     if comp.ndim != 2 or comp.shape[1] % BCH:
         raise ValueError(f"comp must be [B, C] with C % {BCH} == 0")
-    return (torch.from_numpy(comp).to(device).to(torch.int32),
-            torch.from_numpy(np.asarray(comp_len, np.int32)).to(device),
-            torch.from_numpy(np.asarray(out_len, np.int32)).to(device))
+    return upload(device, comp, comp_len, out_len, widen=True)
+
+
+def block_widths(blocks, out_lens):
+    """(C, D) of a batch as ``_device_pass`` sizes it (decode_vector.py:
+    709-728 there): its longest block (at least 16 bytes) and output,
+    each plus one, rounded up to multiples of 4096 and 8192."""
+    return (_cdiv(max(max(map(len, blocks)), 16) + 1, BCH) * BCH,
+            _cdiv(max(max(out_lens), 1) + 1, CH) * CH)
 
 
 def pack_blocks(blocks, out_lens):
     """Host-side batch layout of ``_device_pass`` (decode_vector.py:
     709-728): (comp [B, C] uint8, comp_len [B], out_len [B], C, D)."""
-    max_c = max(max(len(b) for b in blocks), 16)
-    max_d = max(max(out_lens), 1)
-    C = _cdiv(max_c + 1, BCH) * BCH
-    D = _cdiv(max_d + 1, CH) * CH
-    comp = np.zeros((len(blocks), C), np.uint8)
-    for i, b in enumerate(blocks):
-        comp[i, :len(b)] = np.frombuffer(b, np.uint8)
-    comp_len = np.array([len(b) for b in blocks], np.int32)
-    out_len = np.array(out_lens, np.int32)
-    return comp, comp_len, out_len, C, D
+    C, D = block_widths(blocks, out_lens)
+    return (lay(np.empty((len(blocks), C), np.uint8), blocks),
+            np.array([len(b) for b in blocks], np.int32),
+            np.array(out_lens, np.int32), C, D)
+
+
+def prefix_windows(dictionary, B: int):
+    """The windows of ``pack_windows``: (one shared window, or a list of
+    B, each cut to its last 64 KB; pre_len [B] int32; P, the longest
+    rounded up to a multiple of 8192)."""
+    if isinstance(dictionary, (bytes, bytearray, memoryview)):
+        windows = bytes(dictionary)[-MAX_DISTANCE_WINDOW:]
+        pre_len = np.full(B, len(windows), np.int32)
+    else:
+        windows = [bytes(w or b"")[-MAX_DISTANCE_WINDOW:] for w in dictionary]
+        if len(windows) != B:
+            raise ValueError(f"{len(windows)} windows for {B} blocks")
+        pre_len = np.array([len(w) for w in windows], np.int32)
+    return windows, pre_len, _cdiv(max(int(pre_len.max()), 1), CH) * CH
+
+
+def lay_windows(rows, windows, P: int):
+    """``prefix_windows``' windows right-aligned in the first P columns
+    of ``rows``: a shared one by one broadcast.  Returns ``rows``."""
+    return (broadcast if isinstance(windows, bytes) else lay)(
+        rows, windows, end=P)
 
 
 def pack_windows(dictionary, B: int):
     """The prefix rows of ``_device_pass`` (decode_vector.py:730-747
-    there): one shared window (bytes) or one a row (a list of B), each
-    cut to its last 64 KB and right-aligned in P, the longest window
-    rounded up to a multiple of 8192.  Returns (pre [B, P] uint8,
-    pre_len [B] int32, P) as numpy arrays and an int."""
-    if isinstance(dictionary, (bytes, bytearray, memoryview)):
-        windows = [bytes(dictionary)] * B
-    else:
-        windows = [bytes(w or b"") for w in dictionary]
-        if len(windows) != B:
-            raise ValueError(f"{len(windows)} windows for {B} blocks")
-    windows = [w[-MAX_DISTANCE_WINDOW:] for w in windows]
-    P = _cdiv(max(max(map(len, windows)), 1), CH) * CH
-    pre = np.zeros((B, P), np.uint8)
-    for i, w in enumerate(windows):
-        if w:
-            pre[i, P - len(w):] = np.frombuffer(w, np.uint8)
-    return pre, np.array([len(w) for w in windows], np.int32), P
+    there): one shared window (bytes, written into every row at once) or
+    one a row (a list of B), each cut to its last 64 KB and right-aligned
+    in P, the longest window rounded up to a multiple of 8192.  Returns
+    (pre [B, P] uint8, pre_len [B] int32, P) as numpy arrays and an int."""
+    windows, pre_len, P = prefix_windows(dictionary, B)
+    return lay_windows(np.empty((B, P), np.uint8), windows, P), pre_len, P
 
 
 def decode_batch_vectorized(comp, comp_len, out_len, C: int, D: int,
@@ -233,33 +234,33 @@ class VectorDecoder:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.host_decodes = 0
+        self._comp, self._pre = HostRows(), HostRows()
 
-    @staticmethod
-    def _layout(blocks, out_lens, dictionary=None):
-        """One device pass's rows on the host: (comp, comp_len, out_len,
-        C, D, pre, pre_len), the last two None without ``dictionary``."""
-        comp, comp_len, out_len, C, D = pack_blocks(blocks, out_lens)
+    def _layout(self, blocks, out_lens, dictionary=None):
+        """One device pass's rows on the host, as ``pack_blocks`` and
+        ``pack_windows`` lay them, in this thread's kept buffers: (comp,
+        comp_len, out_len, C, D, pre, pre_len), the last two None without
+        ``dictionary``."""
+        C, D = block_widths(blocks, out_lens)
+        comp = lay(self._comp.empty((len(blocks), C)), blocks)
         pre = pre_len = None
         if dictionary:
-            pre, pre_len, _P = pack_windows(dictionary, len(blocks))
-        return comp, comp_len, out_len, C, D, pre, pre_len
+            windows, pre_len, P = prefix_windows(dictionary, len(blocks))
+            pre = lay_windows(self._pre.empty((len(blocks), P)), windows, P)
+        return (comp, np.array([len(b) for b in blocks], np.int32),
+                np.array(out_lens, np.int32), C, D, pre, pre_len)
 
     def _pass(self, comp, comp_len, out_len, C, D, pre, pre_len):
         """One device pass over rows from ``_layout``: (out [B, D] uint8,
         total, ok, strict, needed, block ends [B, 4]) as numpy arrays."""
         with span("lz4t.decode.upload"):
-            dev = batch_from_numpy(comp, comp_len, out_len, self.device)
-            if pre is not None:
-                pre = torch.from_numpy(pre).to(self.device).to(torch.int32)
-                pre_len = torch.from_numpy(pre_len).to(self.device)
+            dev = upload(self.device, comp, comp_len, out_len, widen=True)
+            pre, pre_len = upload(self.device, pre, pre_len, widen=True)
         with span("lz4t.decode.pass"):
             out, total, ok, strict, _consumed, needed, ends = \
                 device_pass(*dev, C, D, pre, pre_len)
         with span("lz4t.decode.fetch"):
-            # fetch bytes, not words
-            return (out.to(torch.uint8).cpu().numpy(), total.cpu().numpy(),
-                    ok.cpu().numpy(), strict.cpu().numpy(),
-                    needed.cpu().numpy(), ends.cpu().numpy())
+            return fetch(out, total, ok, strict, needed, ends)
 
     def decode_batch(self, blocks, out_lens, dictionary=None):
         """The decoded blocks of known lengths ``out_lens``; with
@@ -274,9 +275,10 @@ class VectorDecoder:
                 out_lens = list(out_lens)
                 if not blocks:
                     return []
+                shared = None      # one window, laid by one broadcast
                 if isinstance(dictionary, (bytes, bytearray, memoryview)):
-                    dictionary = ([bytes(dictionary)] * len(blocks)
-                                  if dictionary else None)
+                    shared = bytes(dictionary)
+                    dictionary = [shared] * len(blocks) if shared else None
                 big = [i for i, (b, n) in enumerate(zip(blocks, out_lens))
                        if len(b) > self.MAX_BLOCK or n > self.MAX_BLOCK]
                 bigs = set(big)
@@ -286,8 +288,8 @@ class VectorDecoder:
                     lens = np.array([out_lens[i] for i in small], np.int64)
                     laid = self._layout(
                         [blocks[i] for i in small], lens.tolist(),
-                        [dictionary[i] for i in small] if dictionary
-                        else None)
+                        shared or ([dictionary[i] for i in small]
+                                   if dictionary else None))
 
             def host(i):
                 self.host_decodes += 1

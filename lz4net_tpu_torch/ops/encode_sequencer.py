@@ -34,7 +34,7 @@ from .. import _build
 from ..constants import maximum_output_length
 from ..models import reference
 from ..spans import span
-from .decode_vector import resolve_device
+from .host_rows import HostRows, fetch, kept, lay, resolve_device, upload
 
 MAX_COLS = (1 << 31) // 256   # S and O: block offsets stay inside int32
 
@@ -124,6 +124,7 @@ class SequencerEncoder:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+        self._rows = HostRows()
 
     def encode_batch(self, blocks, dst_maxlens=None) -> list[bytes]:
         """Payloads byte-identical to the reference compressor's; b"" for
@@ -140,22 +141,16 @@ class SequencerEncoder:
                 S = max(max(map(len, blocks)), 1)
                 # no payload exceeds the bound, whatever a block's own cap
                 O = max(min(max(dst_maxlens), maximum_output_length(S)), 1)
-                src = np.zeros((len(blocks), S), np.uint8)
-                for i, b in enumerate(blocks):
-                    src[i, :len(b)] = np.frombuffer(b, np.uint8)
-            dev = self.device
+                src = lay(self._rows.empty((len(blocks), S)), blocks)
             with span("lz4t.encode.upload"):
-                src = torch.from_numpy(src).to(dev)
-                src_len = torch.tensor([len(b) for b in blocks],
-                                       dtype=torch.int32, device=dev)
-                caps = torch.tensor(dst_maxlens, dtype=torch.int32,
-                                    device=dev)
+                src, src_len, caps = upload(
+                    self.device, src, [len(b) for b in blocks], dst_maxlens)
             with span("lz4t.encode.pass"):
                 out, written = encode_sequencer(src, src_len, caps, O)
             with span("lz4t.encode.fetch"):
                 written = written.cpu().numpy()
-                # fetch only the columns a payload reaches
-                out = out[:, :max(int(written.max()), 1)].cpu().numpy()
+                # only the columns a payload reaches
+                out, = fetch(out[:, :max(int(written.max()), 1)])
             with span("lz4t.encode.unpack"):
                 return [out[i, :n].tobytes() if n > 0 else b""
                         for i, n in enumerate(written)]
@@ -164,9 +159,10 @@ class SequencerEncoder:
 def compress_block(src: bytes, dst_maxlen: int | None = None,
                    device="cuda") -> bytes:
     """One block through the strict encoder (``encode_pallas.compress_block``,
-    :390-399); b"" for empty input or a payload over ``dst_maxlen``."""
+    :390-399), the one kept for ``device``; b"" for empty input or a
+    payload over ``dst_maxlen``."""
     src = bytes(src)
-    enc = SequencerEncoder(device)      # raises for CUDA without a card
+    enc = kept(SequencerEncoder, device)  # raises for CUDA without a card
     if not src:
         return b""
     if dst_maxlen is None:

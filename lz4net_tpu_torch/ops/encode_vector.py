@@ -72,7 +72,6 @@ rows (B x P a pass; a ``lz4t.encode.window`` span around each laying).
 
 from __future__ import annotations
 
-import threading
 from contextlib import nullcontext
 
 import numpy as np
@@ -83,7 +82,7 @@ from ..constants import (LASTLITERALS, MAX_DISTANCE, MAX_DISTANCE_WINDOW,
                          maximum_output_length)
 from ..models import native
 from ..spans import span
-from .decode_vector import CH, _cdiv, pack_windows, resolve_device
+from .decode_vector import CH, _cdiv, lay_windows, prefix_windows
 from .bigblock import _synth_literals
 from .chain_kernel import mark_chain
 from .emit_kernel import emit_bytes
@@ -91,6 +90,7 @@ from .fused_gather import rowbase_gather, table_gather
 from .hash_kernel import (bucket_prev, hash_bucket, hash_bucket8,
                           hc_candidates)
 from .hash_kernel import shift_left as _shift_left
+from .host_rows import HostRows, fetch, lay, resolve_device, upload
 from .mlen_kernel import match_lengths_fused, run_lengths
 from .mlen_kernel import words as _u32
 from .seq_kernel import parse_records, sequence_records
@@ -529,50 +529,23 @@ def window_rows(blocks, dictionary=None, zeros=np.zeros):
     """The rows of a batch as ``VectorEncoder.encode_batch`` lays them
     out (encode_vector.py:1076-1094 there): the window prefixes (one
     shared dictionary, written once into every row, or a list of one a
-    block laid by ``decode_vector.pack_windows``; each cut to its last
-    64 KB and right-aligned in the first P positions, P = 0 without
-    one), each block from P on.  ``zeros(shape, dtype)`` makes the
-    zero-filled rows (``VectorEncoder`` hands its kept buffer's).
-    Returns (x [B, D] uint8, data_len [B] int32, pre_len [B] int32 or
-    None, P, D, O, S_cap)."""
+    block; each cut to its last 64 KB and right-aligned in the first P
+    positions, ``decode_vector.prefix_windows``, P = 0 without one),
+    each block from P on.  ``zeros(shape, dtype)`` makes the rows, which
+    need not be zero-filled: every byte is laid (``VectorEncoder`` hands
+    its kept buffer's ``HostRows.empty``).  Returns (x [B, D] uint8,
+    data_len [B] int32, pre_len [B] int32 or None, P, D, O, S_cap)."""
     B = len(blocks)
     with span("lz4t.encode.window") if dictionary else nullcontext():
-        if not dictionary:
-            pre, pre_len, P = None, None, 0
-        elif isinstance(dictionary, (bytes, bytearray, memoryview)):
-            pre = np.frombuffer(bytes(dictionary)[-MAX_DISTANCE_WINDOW:],
-                                np.uint8)
-            pre_len = np.full(B, len(pre), np.int32)
-            P = _cdiv(len(pre), CH) * CH
-        else:
-            pre, pre_len, P = pack_windows(dictionary, B)
+        windows, pre_len, P = (prefix_windows(dictionary, B) if dictionary
+                               else (None, None, 0))
         D, O, S_cap = batch_shapes(max(map(len, blocks)), P)
         x = zeros((B, D), np.uint8)
-        if P:
-            x[:, P - pre.shape[-1]:P] = pre
-    for j, b in enumerate(blocks):
-        x[j, P:P + len(b)] = np.frombuffer(b, np.uint8)
+        if dictionary:
+            lay_windows(x, windows, P)
+    lay(x, blocks, at=P)
     data_len = np.array([len(b) for b in blocks], np.int32)
     return x, data_len, pre_len, P, D, O, S_cap
-
-
-class HostRows(threading.local):
-    """Zero-filled host rows for a batch, from one buffer a thread kept
-    across batches: filling it again costs a memset, where fresh
-    zero-filled memory costs a page fault at first touch of every 4 KB
-    (tens of ms, and most of the spread between runs, for 1,024 rows
-    behind a 64 KB window).  The rows live until the thread's next
-    batch; the upload copies them first."""
-
-    buf = None
-
-    def zeros(self, shape, dtype):
-        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
-        if self.buf is None or self.buf.size < n:
-            self.buf = np.empty(n, np.uint8)
-        x = self.buf[:n].view(dtype).reshape(shape)
-        x.fill(0)
-        return x
 
 
 SEG_SIZE = 64 * 1024     # a big block's encode segments
@@ -590,22 +563,19 @@ def segment_rows(blocks, segs, dictionary=None):
     there) for the segments ``segs`` of ``big_segments(blocks)``: each
     segment from P = 65,536 on, behind the 64 KB of its block before it
     (for a segment less than 64 KB in, the dictionary's tail and the
-    block's start), laid out below P by ``decode_vector.pack_windows``.
-    Returns (x [n, D] uint8, data_len [n] int32, pre_len [n] int32, P, D,
-    O, S_cap), D = 139,264 whatever the segments' lengths, so every pass
-    has one shape."""
+    block's start), right-aligned below P.  Returns (x [n, D] uint8,
+    data_len [n] int32, pre_len [n] int32, P, D, O, S_cap), D = 139,264
+    whatever the segments' lengths, so every pass has one shape."""
     P = MAX_DISTANCE_WINDOW
     D, O, S_cap = batch_shapes(SEG_SIZE, P)
     with span("lz4t.encode.window"):
         head = bytes(dictionary)[-P:] if dictionary else b""
-        pre, pre_len, Pw = pack_windows(
-            [(head + blocks[i][:s])[-P:] if s < P else blocks[i][s - P:s]
-             for i, s, _ in segs], len(segs))
-        x = np.zeros((len(segs), D), np.uint8)
-        x[:, P - Pw:P] = pre             # right-aligned below P
+        windows = [(head + blocks[i][:s])[-P:] if s < P else blocks[i][s - P:s]
+                   for i, s, _ in segs]
+        pre_len = np.array([len(w) for w in windows], np.int32)
+        x = lay(np.empty((len(segs), D), np.uint8), windows, end=P)
+    lay(x, [blocks[i][s:s + ln] for i, s, ln in segs], at=P)
     lens = np.array([ln for *_, ln in segs], np.int32)
-    for j, (i, s, ln) in enumerate(segs):
-        x[j, P:P + ln] = np.frombuffer(blocks[i][s:s + ln], np.uint8)
     return x, lens, pre_len, P, D, O, S_cap
 
 
@@ -630,6 +600,8 @@ class VectorEncoder:
         self.device = resolve_device(device)
         self.host_encodes = 0
         self.window_bytes = 0       # window positions laid into rows
+        # the small rows' kept buffer; the segment rows of big blocks,
+        # laid and passed while the small rows wait, take fresh memory
         self._rows = HostRows()
 
     def _device_pass(self, x, lens, pre_len, P, D, O, S_cap, lvl,
@@ -637,19 +609,12 @@ class VectorEncoder:
         """``encode_batch_vectorized`` on rows laid out on the host:
         (out [B, O] uint8, out_len, ok, aux) as numpy arrays."""
         with span("lz4t.encode.upload"):
-            # the bytes ship as uint8 and widen on the device
-            xt = torch.from_numpy(x).to(self.device).to(torch.int32)
-            lt = torch.from_numpy(lens).to(self.device)
-            pt = (None if pre_len is None
-                  else torch.from_numpy(pre_len).to(self.device))
+            xt, lt, pt = upload(self.device, x, lens, pre_len, widen=True)
         with span("lz4t.encode.pass"):
             out, out_len, ok, aux = encode_batch_vectorized(
                 xt, lt, D, O, S_cap, hc_rcap(lvl, D), lvl, hc_tiers, P, pt)
         with span("lz4t.encode.fetch"):
-            # fetch bytes, not words
-            return (out.to(torch.uint8).cpu().numpy(),
-                    out_len.cpu().numpy(), ok.cpu().numpy(),
-                    aux.cpu().numpy())
+            return fetch(out, out_len, ok, aux)
 
     def encode_batch(self, blocks, dst_maxlens=None, hc_level=0,
                      dictionary=None, hc_tiers=None):
@@ -672,7 +637,7 @@ class VectorEncoder:
                 todo = [i for i, b in enumerate(blocks)
                         if b and len(b) <= self.MAX_BLOCK]
                 laid = (window_rows([blocks[i] for i in todo], dictionary,
-                                    self._rows.zeros) if todo else None)
+                                    self._rows.empty) if todo else None)
                 if laid:
                     self.window_bytes += len(todo) * laid[3]
             lvl = min(max(hc_level, 0), 9)

@@ -17,7 +17,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from ..ops.decode_vector import resolve_device
+from ..ops.host_rows import resolve_device
 
 TIMEOUT_S = 60.0
 

@@ -21,7 +21,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from ..ops.decode_vector import resolve_device
+from ..ops.host_rows import resolve_device
 from .distributed import backend_for, initialize
 
 BLOCK_AXIS = "blocks"

@@ -44,6 +44,7 @@ from ..ops.decode_vector import (device_pass, known_certified,
                                  pack_blocks as pack_vector_blocks,
                                  pack_windows)
 from ..ops.encode_sequencer import encode_sequencer
+from ..ops.host_rows import lay
 from .mesh import block_sharding, make_mesh, replicated
 
 PAD_BLOCK = b"\x00"     # token 0x00: an empty literal run
@@ -86,12 +87,9 @@ def pack_blocks(blocks, out_lens, pad_to_multiple_of: int = 1):
     out_lens = list(out_lens) + [0] * n_pad
     C = max(max(map(len, blocks)), 1)
     D = max(max(out_lens), 1)
-    comp = np.zeros((len(blocks), C), np.uint8)
-    lens = np.zeros((len(blocks), 2), np.int32)
-    for i, b in enumerate(blocks):
-        comp[i, :len(b)] = np.frombuffer(b, np.uint8)
-        lens[i] = (len(b), out_lens[i])
-    return comp, lens, C, D, n
+    lens = np.array([(len(b), m) for b, m in zip(blocks, out_lens)],
+                    np.int32)
+    return lay(np.empty((len(blocks), C), np.uint8), blocks), lens, C, D, n
 
 
 def make_distributed_decode(mesh, n_blocks: int, C: int, D: int):

@@ -298,7 +298,7 @@ def initialize(force: bool = False, device="cuda") -> None:
     from . import _build
     from .models.service_adapters import (CudaService, NativeService,
                                           PythonReferenceService)
-    from .ops.decode_vector import resolve_device
+    from .ops.host_rows import resolve_device
 
     with _init_lock:
         reg = _registry(device)

@@ -41,6 +41,7 @@ from lz4net_tpu_torch.models import cuda as cuda_engine  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import decode_vector as dv  # noqa: E402
 from lz4net_tpu_torch.ops import encode_vector as ev  # noqa: E402
+from lz4net_tpu_torch.ops import host_rows  # noqa: E402
 from lz4net_tpu_torch.utils import corpus  # noqa: E402
 
 P = 8192
@@ -270,8 +271,8 @@ def test_window_rows_lay_a_shared_window_as_one_a_row(kept):
     window = corpus.silesia_like(20000, seed=3)
     big = [corpus.silesia_like(9000, seed=s) for s in (1, 2)]
     small = [b"abc" * 10, b"", b"z"]
-    rows = ev.HostRows()
-    zeros = rows.zeros if kept else np.zeros
+    rows = host_rows.HostRows()
+    zeros = rows.empty if kept else np.zeros
     for blocks, d in ((big, window), (small, None), (small, window[:5]),
                       (big, None), (small, window)):
         got = ev.window_rows(blocks, d, zeros)

@@ -30,6 +30,7 @@ import lz4net_tpu_torch as lz4t  # noqa: E402
 from lz4net_tpu_torch.constants import maximum_output_length  # noqa: E402
 from lz4net_tpu_torch.models import reference  # noqa: E402
 from lz4net_tpu_torch.ops import decode_sequencer as ds  # noqa: E402
+from lz4net_tpu_torch.ops import host_rows  # noqa: E402
 from lz4net_tpu_torch.parallel import distributed  # noqa: E402
 from lz4net_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lz4net_tpu_torch.parallel import pipeline  # noqa: E402
@@ -245,11 +246,19 @@ def test_readme_distributed_decode(mesh, make_test_data):
     assert decoded == blocks_raw
 
 
-def test_decompress_block_matches_pallas_decoder():
+def test_decompress_block_matches_pallas_decoder(monkeypatch):
     """``decode_sequencer.decompress_block`` (the plain walk) against the
     JAX package's single-block entry (its kernel in interpret mode): the
     same bytes, the same refusal of a truncated block; one decoder a
     device."""
+    seen = []
+    decode_batch = ds.SequencerDecoder.decode_batch
+
+    def spy(self, *args):
+        seen.append(self)
+        return decode_batch(self, *args)
+
+    monkeypatch.setattr(ds.SequencerDecoder, "decode_batch", spy)
     data = corpus.silesia_like(3000, seed=9)
     packed = jreference.compress_block(data)
     cut = packed[:len(packed) // 2]
@@ -257,7 +266,10 @@ def test_decompress_block_matches_pallas_decoder():
         == decode_pallas.decompress_block(packed, 3000) == data
     assert _outcome(ds.decompress_block, cut, 3000, "cpu") == "raised" \
         == _outcome(decode_pallas.decompress_block, cut, 3000)
-    assert ds._DECODERS[torch.device("cpu")].device.type == "cpu"
+    kept = host_rows.kept(ds.SequencerDecoder, "cpu")
+    assert len(seen) == 2 and all(d is kept for d in seen)
+    assert kept.device.type == "cpu"
+    assert kept is host_rows.kept(ds.SequencerDecoder, torch.device("cpu"))
 
 
 def _mutations():
